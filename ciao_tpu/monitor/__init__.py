@@ -3,7 +3,7 @@
 The reference computes NO convergence metric in its main path (stop ≡
 false, ``Finito.jl:74``) and only prints ``it | hat_γ`` every ``freq``
 (``Finito.jl:76,124-126``). We keep that printer for parity and add what
-the TPU build needs (SURVEY.md §5):
+an accelerator build needs (SURVEY.md §5):
 
   * on-device fixed-point residual ``||z_{k+1} - z_k|| / hat_γ`` and
     objective value, computed with collective norms when sharded;
@@ -31,7 +31,7 @@ def fixed_point_residual(z_prev, z_next, gamma):
 
 
 def objective(F, g, x):
-    """(1/N) Σ f_i(x) + g(x), computed with full-pass fused oracles."""
+    """(1/N) Σ f_i(x) + g(x), computed with full-pass oracles."""
     vals, _ = F.value_and_grad_all(x)
     return jnp.sum(vals) / F.num_terms + g.value(x)
 

@@ -1,51 +1,12 @@
-"""Pallas TPU kernels for the hot solver steps.
+"""Hand-written kernels and linear maps.
 
-The reference's performance layer is Julia's JIT-compiled in-place
-broadcast loops (SURVEY.md §2); ours is XLA-fused jitted steps plus the
-hand-written Pallas kernels here for the one pattern XLA serves badly:
-the per-step TABLE REFRESH, whose row scatter is ~10x off HBM bandwidth
-(see BENCH notes in bench.py history). The fused kernels stream each
-contiguous block tile through VMEM exactly once: read A-tile + s-tile,
-compute the row gradients and the aggregate innovation, write the new
-s-tile — one pass at speed-of-light HBM traffic.
+``saga_block`` holds the one kernel the library writes itself: the
+coefficient-mode SAGA block step for NVIDIA Hopper GPUs, through Pallas
+and Triton. It reads the block's rows once, where the plain XLA step
+(``solvers.saga.coeff_block_xla``) reads them twice. ``runtime`` decides
+where it runs.
 """
 
-from ciao_tpu.ops.fused_block import (
-    MODE_HUBER,
-    MODE_SQHINGE,
-    MODE_LOGISTIC,
-    MODE_LSQ,
-    MODE_POISSON,
-    coeff_multistep_available,
-    finito_block_update,
-    fused_block_available,
-    saga_block_update,
-    saga_coeff_multistep,
-    finito_coeff_multistep,
-    finito_multistep_available,
-    svrg_coeff_multistep,
-    svrg_multistep_available,
-    lfinito_sweep_multistep,
-    lfinito_sweep_available,
-    coeff_apply_all,
-)
+from ciao_tpu.ops.saga_block import block_step_supported, saga_block_step
 
-__all__ = [
-    "coeff_multistep_available",
-    "MODE_HUBER",
-    "MODE_LOGISTIC",
-    "MODE_LSQ",
-    "MODE_POISSON",
-    "MODE_SQHINGE",
-    "finito_block_update",
-    "fused_block_available",
-    "saga_block_update",
-    "saga_coeff_multistep",
-    "finito_coeff_multistep",
-    "finito_multistep_available",
-    "svrg_coeff_multistep",
-    "svrg_multistep_available",
-    "lfinito_sweep_multistep",
-    "lfinito_sweep_available",
-    "coeff_apply_all",
-]
+__all__ = ["block_step_supported", "saga_block_step"]

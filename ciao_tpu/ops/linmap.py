@@ -16,7 +16,7 @@ A map here is a pytree dataclass with
     an underestimate breaks convergence)
 
 All three concrete maps are XLA-fusable elementwise/matmul ops — no
-gather/scatter, so they ride the MXU/VPU at full rate.
+gather/scatter.
 """
 
 from __future__ import annotations

@@ -5,10 +5,10 @@ The reference interacts with its smooth terms exclusively through
 on *per-index closure objects* (ProximalOperators.jl; see e.g.
 reference ``src/algorithms/Finito/Finito_basic.jl:78,112``).
 
-The TPU-native inversion: one oracle object owns the data of ALL ``N``
-terms as stacked device arrays, and exposes *batched* gradient entry
-points so that the hot paths are gathers + matmuls (MXU) rather than N
-scalar closure calls:
+The accelerator-native inversion: one oracle object owns the data of
+ALL ``N`` terms as stacked device arrays, and exposes *batched*
+gradient entry points so that the hot paths are gathers + matmuls
+rather than N scalar closure calls:
 
   * ``grad_batch(x, idx)``      — per-sample grads of the gathered index
                                   batch, all evaluated at the same point
@@ -36,6 +36,8 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import functools
+import inspect
 from typing import Any, Tuple
 
 import jax
@@ -57,6 +59,27 @@ def register_oracle(cls):
     jax.tree_util.register_dataclass(
         cls, data_fields=data_fields, meta_fields=meta_fields
     )
+    return cls
+
+
+def highest_precision(cls):
+    """Trace every method of a dense-row oracle under
+    ``Precision.HIGHEST``. On a GPU a float32 product may otherwise run
+    in TF32 (about three decimal digits), and the delta-maintained
+    running averages of the SAGA-type solvers keep such an error
+    forever: SAGA on the planted 262,144 × 1,024 Lasso floored at
+    rel 1.1e-3 on an H100 without it. The row passes are bandwidth-
+    bound matrix-vector products, so exact f32 costs no time."""
+    def pinned(fn):
+        @functools.wraps(fn)
+        def method(*args, **kwargs):
+            with jax.default_matmul_precision("highest"):
+                return fn(*args, **kwargs)
+        return method
+
+    for name, attr in list(vars(cls).items()):
+        if not name.startswith("__") and inspect.isfunction(attr):
+            setattr(cls, name, pinned(attr))
     return cls
 
 
@@ -91,7 +114,7 @@ def quantize_rows(A):
     Returns ``(q, row_scale)`` with ``q ∈ [-127, 127]`` int8 and f32
     ``row_scale`` such that ``a_i ≈ row_scale_i · q_i`` (absmax
     scaling; all-zero rows get scale 1 so they stay exactly zero).
-    int8 → bf16/f32 conversion is exact, so downstream MXU paths see
+    int8 → bf16/f32 conversion is exact, so downstream matmul paths see
     the SAME perturbed operator regardless of compute precision.
     """
     rs = jnp.max(jnp.abs(A), axis=1).astype(jnp.float32) / 127.0
@@ -108,7 +131,7 @@ class SmoothOracle(abc.ABC):
     Subclasses must define ``N`` (number of terms) and ``dim`` (dimension
     of the evaluation point) and implement ``value_and_grad_i``.  All
     batched entry points have generic implementations via ``vmap``;
-    subclasses override them when a fused matmul (MXU) path exists.
+    subclasses override them when a matmul path exists.
     """
 
     #: True when every gradient is coordinatewise in x — coordinate j of
@@ -190,11 +213,10 @@ class SmoothOracle(abc.ABC):
         return jax.vmap(lambda xi, j: self.value_and_grad_i(xi, j))(xs, idx)
 
     # --- contiguous-block entry points --------------------------------
-    # TPU fast path: the reference's cyclic/shuffled sweeps pick STATIC
-    # CONTIGUOUS index blocks (Finito_basic.jl:50-58), which map to
-    # dynamic-slice DMAs instead of row gathers (XLA's TPU row scatter
-    # is ~10x off bandwidth; measured in BENCH notes). Subclasses with
-    # stacked data override these with lax.dynamic_slice reads.
+    # The reference's cyclic/shuffled sweeps pick STATIC CONTIGUOUS
+    # index blocks (Finito_basic.jl:50-58), which map to dynamic slices
+    # instead of row gathers and scatters. Subclasses with stacked data
+    # override these with lax.dynamic_slice reads.
 
     def grad_block(self, x, start, size: int):
         """grads of terms [start, start+size) at x — contiguous block."""

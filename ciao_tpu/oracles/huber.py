@@ -10,11 +10,9 @@ reference's oracle set, same protocol).
 The gradient is RANK-1 with scalar coefficient
 c_i(x) = scale·clip(margin − b_i, ±δ), so the whole coefficient-table
 machinery (``table="auto"`` solvers, TP margin/coeff split, storage
-modes) applies exactly as for :class:`LeastSquaresRows`. As of round 2
-the clip IS an in-kernel formula (``ops.fused_block.MODE_HUBER``; δ
-rides the trailing ``aux`` scalar slot every coefficient kernel
-carries), so this oracle serves every fused Pallas path least-squares
-rows do — measured at the LSQ fused rates (PERF.md).
+modes) applies exactly as for :class:`LeastSquaresRows`. The clip is
+the ``oracles.coeff.MODE_HUBER`` formula (δ is the kernel's ``aux``
+scalar), so this oracle serves every path least-squares rows do.
 
 Smoothness: ∇f_i is scale·‖a_i‖²-Lipschitz (the clip only flattens it),
 same L as the least-squares row.
@@ -29,8 +27,13 @@ import jax
 import jax.numpy as jnp
 
 from ciao_tpu.oracles.base import (
-    SmoothOracle, parse_storage_dtype, quantize_rows, register_oracle,
+    highest_precision,
+    parse_storage_dtype,
+    quantize_rows,
+    register_oracle,
+    SmoothOracle,
 )
+from ciao_tpu.oracles.coeff import MODE_HUBER
 
 
 def _hub_val(r, delta):
@@ -38,6 +41,7 @@ def _hub_val(r, delta):
     return jnp.where(a <= delta, 0.5 * r * r, delta * (a - 0.5 * delta))
 
 
+@highest_precision
 @register_oracle
 @dataclasses.dataclass(frozen=True)
 class HuberRows(SmoothOracle):
@@ -162,17 +166,16 @@ class HuberRows(SmoothOracle):
     # ---- coefficient (rank-1) structure -------------------------------
     # ∇f_i = c_i·a_i with c_i = scale·clip(a_i·x − b_i, ±δ): the (N,)
     # coefficients exactly compress the gradient table. The clip is the
-    # in-kernel MODE_HUBER formula as of round 2 (δ rides the kernels'
-    # trailing ``aux`` scalar slot), so HuberRows serves every fused
-    # path LeastSquaresRows does.
+    # MODE_HUBER coefficient formula (δ is the kernel's ``aux`` scalar),
+    # so HuberRows serves every path LeastSquaresRows does.
 
     supports_coeff: bool = dataclasses.field(
         default=True, metadata={"static": True}
     )
-    coeff_mode = 2  # ops.fused_block.MODE_HUBER
+    coeff_mode = MODE_HUBER
 
     def coeff_rows_data(self):
-        """(rows, offsets) consumed by the fused multi-step kernels
+        """(rows, offsets) consumed by the Hopper block-step kernel
         (δ ships separately as the ``aux`` scalar)."""
         return self.A, self.b
 

@@ -8,15 +8,15 @@ objects used by the reference's Lasso tests
     grad f_i(x) = scale * conj(a_i) * (<a_i, x> - b_i)
 
 but stored as ONE stacked matrix ``A (N, n)`` so every batched path is a
-gather + matmul on the MXU. Complex dtypes supported (the reference test
+gather + matmul. Complex dtypes supported (the reference test
 sweeps ComplexF32/ComplexF64, ``test_lasso.jl:3``).
 
 Storage modes (``with_storage``): bf16 rows (half the HBM traffic) and
 int8 rows with per-row symmetric scales (quarter the traffic) — the
-streaming kernels are HBM-bound (PERF.md), so narrower storage is the
-main single-chip throughput lever. With quantized rows every path
+row passes are bandwidth-bound, so narrower storage is the main
+single-device throughput lever. With quantized rows every path
 computes EXACTLY with the perturbed operator Ã = diag(row_scale)·Q, so
-fused/stepwise trajectories remain mutually consistent; the per-row
+kernel/XLA trajectories remain mutually consistent; the per-row
 scale commutes with every row-wise product, so no dense dequantized A
 is ever materialized on the matvec paths.
 """
@@ -29,10 +29,16 @@ from typing import Optional
 import jax.numpy as jnp
 
 from ciao_tpu.oracles.base import (
-    SmoothOracle, parse_storage_dtype, quantize_rows, register_oracle,
+    highest_precision,
+    parse_storage_dtype,
+    quantize_rows,
+    register_oracle,
+    SmoothOracle,
 )
+from ciao_tpu.oracles.coeff import MODE_LSQ
 
 
+@highest_precision
 @register_oracle
 @dataclasses.dataclass(frozen=True)
 class LeastSquaresRows(SmoothOracle):
@@ -53,8 +59,8 @@ class LeastSquaresRows(SmoothOracle):
         return jnp.conj(self.A) if jnp.iscomplexobj(self.A) else self.A
 
     def with_storage(self, dtype=jnp.bfloat16):
-        """Copy with the data rows STORED in ``dtype``. The kernels are
-        HBM-bound (PERF.md), so narrower row storage converts directly
+        """Copy with the data rows STORED in ``dtype``. Row passes are
+        bandwidth-bound, so narrower row storage converts directly
         into throughput; solver state/iterates stay f32 either way.
 
         * bf16: half the traffic, gradients accurate to bf16's ~3
@@ -84,7 +90,7 @@ class LeastSquaresRows(SmoothOracle):
         grad = self.scale * jnp.conj(a) * r
         return val, grad
 
-    # ---- fused MXU paths --------------------------------------------
+    # ---- batched matmul paths ---------------------------------------
     def _residual(self, x, idx):
         """(dense_rows, residual) of the gathered batch; int8 rows are
         dequantized per-block (the gather paths materialize (B, n)
@@ -216,10 +222,10 @@ class LeastSquaresRows(SmoothOracle):
     supports_coeff: bool = dataclasses.field(
         default=True, metadata={"static": True}
     )
-    coeff_mode = 0  # ops.fused_block.MODE_LSQ
+    coeff_mode = MODE_LSQ
 
     def coeff_rows_data(self):
-        """(rows, offsets) consumed by the fused multi-step kernel."""
+        """(rows, offsets) consumed by the Hopper block-step kernel."""
         return self.A, self.b
 
     def coeff_rows_scale(self):
@@ -314,50 +320,6 @@ class LeastSquaresRows(SmoothOracle):
             r = r * self.row_scale
         res = r - self.b
         return 0.5 * self.scale * jnp.sum(jnp.real(res * jnp.conj(res)))
-
-    # ---- fused Pallas table-refresh kernels (TPU, f32) ---------------
-    # One streaming VMEM pass per block: row gradients + table write +
-    # aggregate innovation (ciao_tpu.ops.fused_block). Callers gate on
-    # ``ops.fused_block_available``.
-
-    def fused_saga_block(self, s, z, start, size: int,
-                         precision: str = "highest"):
-        """(s_updated, Σ_B (∇f_i(z) − s_i_old)) on rows [start, start+size)."""
-        from ciao_tpu.ops import saga_block_update
-
-        if self.row_scale is not None:
-            raise ValueError(
-                "int8 rows: full-table fused kernels are not supported "
-                "(the f32 table traffic dominates — use table='coeff')"
-            )
-        scale2 = jnp.reshape(self.scale, (1, 1)).astype(jnp.float32)
-        return saga_block_update(
-            self.A, self.b[:, None], s, z[None, :], start, scale2, size,
-            precision=precision,
-        )
-
-    def fused_finito_block(self, s, gamma, z, start, size: int, inv_N,
-                           hat_gamma, precision: str = "highest"):
-        """(s_updated, Σ_B (s_new − s_old)·hat_γ/γ_i) with
-        s_new = z − γ_i·inv_N·∇f_i(z) on rows [start, start+size)."""
-        from ciao_tpu.ops import finito_block_update
-
-        if self.row_scale is not None:
-            raise ValueError(
-                "int8 rows: full-table fused kernels are not supported "
-                "(the f32 table traffic dominates — use table='coeff')"
-            )
-        scalars = jnp.stack(
-            [
-                jnp.asarray(self.scale, jnp.float32),
-                jnp.asarray(inv_N, jnp.float32),
-                jnp.asarray(hat_gamma, jnp.float32),
-            ]
-        )[None, :]
-        return finito_block_update(
-            self.A, self.b[:, None], s, gamma[:, None], z[None, :], start,
-            scalars, size, precision=precision,
-        )
 
     def value_and_grad_pointwise(self, xs, idx):
         A_B = self.A[idx]

@@ -25,8 +25,13 @@ import jax
 import jax.numpy as jnp
 
 from ciao_tpu.oracles.base import (
-    SmoothOracle, parse_storage_dtype, quantize_rows, register_oracle,
+    highest_precision,
+    parse_storage_dtype,
+    quantize_rows,
+    register_oracle,
+    SmoothOracle,
 )
+from ciao_tpu.oracles.coeff import MODE_LOGISTIC
 
 
 def _log1pexp(t):
@@ -34,6 +39,7 @@ def _log1pexp(t):
     return jnp.logaddexp(0.0, t)
 
 
+@highest_precision
 @register_oracle
 @dataclasses.dataclass(frozen=True)
 class LogisticRows(SmoothOracle):
@@ -160,10 +166,10 @@ class LogisticRows(SmoothOracle):
     supports_coeff: bool = dataclasses.field(
         default=True, metadata={"static": True}
     )
-    coeff_mode = 1  # ops.fused_block.MODE_LOGISTIC
+    coeff_mode = MODE_LOGISTIC
 
     def coeff_rows_data(self):
-        """(rows, labels) consumed by the fused multi-step kernel."""
+        """(rows, labels) consumed by the Hopper block-step kernel."""
         return self.X, self.y
 
     def coeff_rows_scale(self):

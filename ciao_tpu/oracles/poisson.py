@@ -12,10 +12,9 @@ rank-1,
 
     ∇f_i(x) = c_i·a_i,   c_i = scale·(exp(a_iᵀx) − y_i),
 
-so the (N,) coefficient table and ALL fused Pallas paths apply —
-MODE_POISSON in the in-kernel coefficient formula. The per-row PROX
-(Point-SAGA) is a 1-D monotone-concave Newton solve (in-kernel, like
-logistic).
+so the (N,) coefficient table applies — MODE_POISSON in the
+coefficient formulas of ``oracles.coeff``. The per-row PROX
+(Point-SAGA) is a 1-D monotone-concave Newton solve (like logistic).
 
 **Clamped link.** exp is unbounded, so the loss this oracle defines is
 the C¹ LINEAR EXTENSION past margin M = ``POISSON_CLAMP`` (= 30):
@@ -25,10 +24,9 @@ the C¹ LINEAR EXTENSION past margin M = ``POISSON_CLAMP`` (= 30):
     coeff(m) = exp(min(m, M)) − y.
 
 The pair is consistent (coeff = d value/dm everywhere), exp never
-overflows f32 in-kernel, and the clamp is shared with
-``ops.fused_block`` so the oracle and every fused kernel compute the
-IDENTICAL function. Any margin that large means the model is diverging
-anyway (rate e^30 ≈ 10¹³); the extension keeps gradients finite so the
+overflows f32, and the clamp is shared through ``oracles.coeff`` so the
+oracle and the block-step kernel compute the IDENTICAL function. Any
+margin that large means the model is diverging anyway (rate e^30 ≈ 10¹³); the extension keeps gradients finite so the
 solver can walk back.
 
 There is no global Lipschitz modulus (the Hessian w.r.t. the margin is
@@ -49,14 +47,16 @@ import jax
 import jax.numpy as jnp
 
 from ciao_tpu.oracles.base import (
-    SmoothOracle,
+    highest_precision,
     parse_storage_dtype,
     quantize_rows,
     register_oracle,
+    SmoothOracle,
 )
-from ciao_tpu.ops.fused_block import POISSON_CLAMP
+from ciao_tpu.oracles.coeff import MODE_POISSON, POISSON_CLAMP
 
 
+@highest_precision
 @register_oracle
 @dataclasses.dataclass(frozen=True)
 class PoissonRows(SmoothOracle):
@@ -194,16 +194,16 @@ class PoissonRows(SmoothOracle):
                 self._coeff_from_margin(m, y_B)[:, None] * A_B)
 
     # ---- coefficient (rank-1) structure -------------------------------
-    # the clamped link is the in-kernel MODE_POISSON formula, so these
-    # rows serve every fused path LeastSquaresRows does
+    # the clamped link is the MODE_POISSON coefficient formula, so these
+    # rows serve every coefficient path LeastSquaresRows does
 
     supports_coeff: bool = dataclasses.field(
         default=True, metadata={"static": True}
     )
-    coeff_mode = 4  # ops.fused_block.MODE_POISSON
+    coeff_mode = MODE_POISSON
 
     def coeff_rows_data(self):
-        """(rows, counts) consumed by the fused multi-step kernels."""
+        """(rows, counts) consumed by the Hopper block-step kernel."""
         return self.A, self.y
 
     def coeff_rows_scale(self):
@@ -290,9 +290,7 @@ class PoissonRows(SmoothOracle):
     # prox of one row solves θ = scale·(exp(min(m_z − γ‖a‖²θ, M)) − y):
     # φ(θ) = θ − c(θ) is increasing AND concave (φ' ≥ 1), so Newton is
     # globally convergent; 20 steps from the warm start θ₀ = table
-    # coefficient (same contract as LogisticRows.pointprox_*; the fused
-    # kernels carry the identical Newton as the MODE_POISSON branch of
-    # ops.fused_block._pointprox_theta).
+    # coefficient (same contract as LogisticRows.pointprox_*).
 
     supports_pointprox = True
 

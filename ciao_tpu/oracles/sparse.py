@@ -1,29 +1,26 @@
 """Sparse least-squares rows in ELL (padded fixed-nnz) format.
 
-BASELINE.json's large-problem configs name an "rcv1-scale" sparse Lasso
-(N ~ 1e5..1e7 samples, n ~ 5e4 features, ~0.1 % density). A dense
-(N, n) matrix is HBM-infeasible there, and the CSR formats CPU codes
-use do not map to the TPU (variable-length rows defeat static shapes
-and the MXU). The TPU-native layout is ELL: every row padded to a fixed
-``K`` nonzeros —
+An "rcv1-scale" sparse Lasso (N ~ 1e5..1e7 samples, n ~ 5e4 features,
+~0.1 % density) cannot hold a dense (N, n) matrix in device memory, and
+the CSR formats CPU codes use do not map to XLA (variable-length rows
+defeat static shapes). The static-shape layout is ELL: every row padded
+to a fixed ``K`` nonzeros —
 
     idx (N, K) int32   column indices (padding slots: index 0)
     val (N, K)         values          (padding slots: value 0.0)
 
 so every batched operation is a static-shape gather (z[idx_B]) or
-scatter-add — XLA's TPU row gather runs near bandwidth; the scatter in
-``apply_rows`` is the known-slow op (PERF.md) but touches only B·K
-elements per step instead of B·n.
+scatter-add; the scatter in ``apply_rows`` touches only B·K elements
+per step instead of B·n.
 
     f_i(x) = (scale / 2) * (<a_i, x> - b_i)^2
     grad f_i(x) = scale * (<a_i, x> - b_i) * a_i      (rank-1: coeff mode)
 
-Design note (documented for the 10M×100 case): when n is SMALL (≲ a few
-hundred), dense-padding the feature dimension to the 128-lane boundary
-and streaming with :class:`LeastSquaresRows` + the fused kernels is
-FASTER than any sparse format — the MXU reads 128 lanes regardless, so
-sparsity below one lane-width saves nothing. Use this class when n is
-large enough that dense rows don't fit (n ≳ 1e3 at rcv1-scale N).
+Design note (the 10M×100 case): when n is SMALL (≲ a few hundred),
+dense rows streamed through :class:`LeastSquaresRows` move fewer bytes
+than ELL's (index, value) pairs, so sparsity saves nothing there. Use
+this class when n is large enough that dense rows don't fit
+(n ≳ 1e3 at rcv1-scale N).
 """
 
 from __future__ import annotations
@@ -101,9 +98,8 @@ class SparseLeastSquaresELL(SmoothOracle):
 
     # --- coefficient (rank-1) protocol --------------------------------
     supports_coeff: bool = static_field(default=True)
-    coeff_mode = 0  # least-squares formula (no fused kernel: gate is
-    #                 hasattr(F, "coeff_rows_data"), which this class
-    #                 deliberately does not provide)
+    coeff_mode = 0  # least-squares formula (no dense rows: this class
+    #                 deliberately provides no coeff_rows_data)
 
     def margin_all(self, x):
         """Raw margins <a_i, x> (no scale/offset) — one operator pass;
@@ -195,18 +191,15 @@ class SparseLeastSquaresELL(SmoothOracle):
 @register_oracle
 @dataclasses.dataclass(frozen=True)
 class HybridSparseLeastSquares(SmoothOracle):
-    """Hot/cold split sparse least-squares rows — the TPU-native layout
-    for power-law sparse data (rcv1-style doc×term matrices).
+    """Hot/cold split sparse least-squares rows — the layout for
+    power-law sparse data (rcv1-style doc×term matrices).
 
-    Measured fact (PERF.md "Sparse routing bound"): every fine-grained
-    random access on this chip — gather OR scatter-add, any XLA flags,
-    any table size — runs at ~125 M elements/s (the scalar core's
-    descriptor rate), so a pure-ELL oracle is bound by ~125M/K rows/s.
-    The only lever is ROUTING FEWER ELEMENTS. Real sparse text/feature
-    matrices are power-law: the top-D columns carry most of the nnz.
-    Store those columns DENSE (an (N, D) matrix riding the MXU /
-    bandwidth fast paths at 400-550 GB/s) and keep only the tail in ELL
-    with a small K:
+    Fine-grained random accesses (gather OR scatter-add) are slower per
+    element than a dense row stream, so a pure-ELL oracle is bound by
+    its routed elements. The lever is ROUTING FEWER ELEMENTS. Real
+    sparse text/feature matrices are power-law: the top-D columns carry
+    most of the nnz. Store those columns DENSE (an (N, D) matrix on the
+    dense matmul paths) and keep only the tail in ELL with a small K:
 
         margin_i = <A_hot[i], x[hot_cols]> + Σ_k val[i,k]·x[idx[i,k]] − b_i
 
@@ -510,7 +503,7 @@ class SparseLogisticELL(SmoothOracle):
 
     # --- coefficient (rank-1) protocol ----------------------------------
     supports_coeff: bool = static_field(default=True)
-    coeff_mode = 1  # logistic formula (no fused kernel: no coeff_rows_data)
+    coeff_mode = 1  # logistic formula (no dense rows: no coeff_rows_data)
 
     def margin_all(self, x):
         """Raw margins <a_i, x> — label-free (the logistic margin
@@ -595,9 +588,9 @@ class SparseLogisticELL(SmoothOracle):
 @dataclasses.dataclass(frozen=True)
 class HybridSparseLogistic(SmoothOracle):
     """Hot/cold split sparse logistic rows — the power-law layout of
-    :class:`HybridSparseLeastSquares` (dense hot columns ride the
-    MXU/bandwidth fast paths; only the tail pays the ~125 M elem/s
-    scalar routing bound, PERF.md) with the logistic loss of
+    :class:`HybridSparseLeastSquares` (dense hot columns take the dense
+    matmul paths; only the tail pays for routed elements) with the
+    logistic loss of
     :class:`SparseLogisticELL`:
 
         margin_i = <A_hot[i], x[hot_cols]> + Σ_k val[i,k]·x[idx[i,k]]

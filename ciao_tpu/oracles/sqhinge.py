@@ -12,11 +12,10 @@ L2-SVM, with g = NormL1 a sparse SVM. The gradient is rank-1,
 
     ∇f_i(x) = c_i·a_i,   c_i = −scale·y_i·max(0, 1 − y_i·a_iᵀx),
 
-so the (N,) coefficient table and ALL fused Pallas paths apply — the
-clamp is the in-kernel MODE_SQHINGE coefficient formula, and the
-squared-hinge SAGA/Katyusha/SSNM steps run at the least-squares byte
-floors (PERF.md). The per-row PROX (Point-SAGA) is closed-form: the
-hinge is active iff y·m_z < 1, giving
+so the (N,) coefficient table applies — the clamp is the MODE_SQHINGE
+coefficient formula, and the squared-hinge SAGA/Katyusha/SSNM steps
+move the same bytes as least squares. The per-row PROX (Point-SAGA) is
+closed-form: the hinge is active iff y·m_z < 1, giving
 θ = −scale·y·(1−y·m_z)/(1 + scale·γ‖a‖²) on the active side, 0 off it.
 
 Structure mirrors :class:`ciao_tpu.oracles.HuberRows` (margin-based
@@ -32,13 +31,16 @@ import jax
 import jax.numpy as jnp
 
 from ciao_tpu.oracles.base import (
-    SmoothOracle,
+    highest_precision,
     parse_storage_dtype,
     quantize_rows,
     register_oracle,
+    SmoothOracle,
 )
+from ciao_tpu.oracles.coeff import MODE_SQHINGE
 
 
+@highest_precision
 @register_oracle
 @dataclasses.dataclass(frozen=True)
 class SquaredHingeRows(SmoothOracle):
@@ -170,16 +172,16 @@ class SquaredHingeRows(SmoothOracle):
                 self._coeff_from_margin(m, y_B)[:, None] * A_B)
 
     # ---- coefficient (rank-1) structure -------------------------------
-    # the clamp is the in-kernel MODE_SQHINGE formula, so these rows
-    # serve every fused path LeastSquaresRows does
+    # the clamp is the MODE_SQHINGE coefficient formula, so these rows
+    # serve every coefficient path LeastSquaresRows does
 
     supports_coeff: bool = dataclasses.field(
         default=True, metadata={"static": True}
     )
-    coeff_mode = 3  # ops.fused_block.MODE_SQHINGE
+    coeff_mode = MODE_SQHINGE
 
     def coeff_rows_data(self):
-        """(rows, labels) consumed by the fused multi-step kernels."""
+        """(rows, labels) consumed by the Hopper block-step kernel."""
         return self.A, self.y
 
     def coeff_rows_scale(self):
@@ -263,9 +265,7 @@ class SquaredHingeRows(SmoothOracle):
     # the hinge is ACTIVE exactly when y·m_z < 1 (the activity of the
     # fixed point matches the activity at m_z — substitute back), giving
     # the closed form θ = −scale·y·(1−y·m_z)/(1 + scale·γ‖a‖²) there
-    # and 0 otherwise. XLA path only (the fused Point-SAGA kernels
-    # carry the LSQ/logistic solves; the facade gate routes sqhinge to
-    # the stepwise step).
+    # and 0 otherwise.
 
     supports_pointprox = True
 

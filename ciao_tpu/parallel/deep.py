@@ -5,7 +5,7 @@ the f32 gradient floor → compensated-gradient FISTA polish) composed
 from the DP building blocks:
 
 1. **Stochastic stage** — :class:`DPSAGA` in LOCAL-UPDATE mode
-   (``local_steps`` fused coefficient-SAGA steps per collective; the
+   (``local_steps`` coefficient-SAGA steps per collective; the
    multi-chip throughput path), run in round chunks until the
    full-pass objective plateaus. The objective itself is one
    auto-sharded value pass over the row-sharded oracle.
@@ -63,7 +63,7 @@ def deep_solve_dp(
     """Solve ``min (1/N) Σ f_i + g`` to deep relative accuracy over a
     DP mesh. ``F`` must already be sharded (``shard_finite_sum``) with
     dense f32 rows; ``g`` needs ``prox_only``. ``local_steps`` sets the
-    fused steps per collective in the stochastic stage; the polish is
+    local steps per collective in the stochastic stage; the polish is
     ``polish_steps`` DP-FISTA passes with per-shard compensated chunks.
     Returns ``(x, DeepSolveInfo)`` (the ``staged`` record carries the
     stochastic stage's per-chunk objectives)."""

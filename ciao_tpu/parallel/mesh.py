@@ -5,7 +5,7 @@ The reference is single-process with no parallelism of any kind
 only at the mathematical level, where the finite-sum index ``i`` and the
 sharing-problem blocks are the natural partition axes.  This module is
 therefore a first-class component with no reference counterpart: it maps
-that mathematical partition onto a TPU device mesh.
+that mathematical partition onto an accelerator device mesh.
 
 Design (jax.sharding / GSPMD, scaling-book recipe):
 

@@ -11,9 +11,6 @@ Here a prox operator is a pytree-registered dataclass with:
                             returning ``(z, g(z))``
   * ``prox_only(x, gamma)`` — just z (the hot-loop entry; the reference's
                             ``prox!`` never uses the returned value either)
-
-Separable (elementwise) operators additionally dispatch to fused Pallas
-TPU kernels via :mod:`ciao_tpu.prox.pallas_kernels` when profitable.
 """
 
 from __future__ import annotations

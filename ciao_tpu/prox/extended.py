@@ -8,9 +8,8 @@ halfspace projections, log-barrier, hinge — so a ProximalOperators user
 switching to this framework finds their operator under the same name.
 
 All formulas are closed-form XLA (elementwise, sort-based, or one small
-solve); nothing here needs a Pallas kernel — the solvers' fused paths
-already cover the hot prox (NormL1/Zero in-kernel), and these run once
-per step on an x-sized vector.
+solve); nothing here needs a Pallas kernel — these run once per step on
+an x-sized vector.
 """
 
 from __future__ import annotations

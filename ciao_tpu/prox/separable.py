@@ -7,9 +7,8 @@ standard extended library (NormL2, SqrNormL2, ElasticNet, IndBallL2,
 IndSimplex, NormNuclear) so users of ProximalOperators.jl find their
 operators here.
 
-Separable operators route through :func:`ciao_tpu.prox.pallas_kernels.
-maybe_fused` on TPU for fused elementwise execution; everywhere else
-(CPU CI, complex dtypes) the identical XLA formulas run.
+Every operator is an elementwise XLA formula; XLA fuses it into the
+surrounding step.
 """
 
 from __future__ import annotations

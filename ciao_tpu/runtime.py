@@ -1,73 +1,83 @@
-"""Backend introspection + the fused-fallback warning machinery.
+"""Backend policy and the persistent compile cache.
 
-A tiny dependency-free module (imported by both ``ops`` and
-``solvers`` — keep it cycle-free): one place answers "are the fused
-Pallas kernels' gates open on this backend?", and one place emits the
-ONE-TIME warnings when a TPU run silently lands on a stepwise/XLA path
-for a reason the user can fix (VERDICT r3 weak #1 — a 4× perf cliff
-with no signal is worse than a warning).
-
-Tests monkeypatch :func:`on_tpu` to exercise the TPU-only gating logic
-on the CPU CI mesh (``tests/test_warnings.py``).
+One place states which code runs on which backend. Every solver step
+is plain XLA on every backend. The one hand-written kernel, the
+coefficient-mode SAGA block step (``ops.saga_block``), runs on a CUDA
+GPU only, where the SAGA facade takes it for the shapes it was measured
+on; a step that asks for it on another backend raises. No path runs
+the Pallas interpreter outside the tests.
 """
 
 from __future__ import annotations
 
-import contextlib
-import warnings
+import os
+import shutil
+import subprocess
 
 import jax
-
-_FALLBACK_WARNED: set = set()
-_EXPECTED_DEPTH = 0
+import jax.numpy as jnp
 
 
-@contextlib.contextmanager
-def expected_fallback():
-    """Scope in which a fused-fallback is EXPECTED — a caller knowingly
-    takes the stepwise path (e.g. :func:`ciao_tpu.deep_solve_sharing`,
-    whose ProShI leg is stepwise BY DESIGN: (N, n) DiagQuadratic blocks
-    are not rank-1, no fused kernel exists for the class). Warnings
-    inside the scope are dropped WITHOUT consuming the one-time dedup
-    slot, so a user's own later config with the same reason still
-    warns."""
-    global _EXPECTED_DEPTH
-    _EXPECTED_DEPTH += 1
-    try:
-        yield
-    finally:
-        _EXPECTED_DEPTH -= 1
+def on_gpu() -> bool:
+    """Whether the default backend is a CUDA GPU."""
+    return jax.default_backend() == "gpu"
 
 
-def on_tpu() -> bool:
-    """Whether the default backend is a real TPU — the target of the
-    fused Pallas kernels and the scope of the fallback warnings (CPU
-    runs are expected to be unfused: silent there)."""
-    return jax.default_backend() == "tpu"
+def block_step_kernel(F, x0, batch: int, coeff_block: bool) -> bool:
+    """Whether a solver's coefficient-mode block steps run through the
+    Hopper kernel: on a CUDA GPU, for float32 iterates, an oracle with
+    dense rows (``coeff_rows_data``) and a shape the kernel was measured
+    on (``block_step_supported``). ``coeff_block`` says whether the
+    solver takes coefficient block steps at all."""
+    if not (coeff_block and on_gpu()
+            and jnp.asarray(x0).dtype == jnp.float32
+            and hasattr(F, "coeff_rows_data")):
+        return False
+    from ciao_tpu.ops.saga_block import block_step_supported
+
+    rows, _ = F.coeff_rows_data()
+    return block_step_supported(*rows.shape, batch, rows.dtype)
 
 
-def warn_fused_fallback(who: str, reason: str, remedy: str) -> None:
-    """One-time (per facade+reason) warning that this TPU run will use
-    the stepwise XLA path instead of the fused kernel — measured ~4×
-    slower at the benchmark shapes (PERF.md). Names the reason and the
-    remedy; silent off-TPU and silent when the fused path is taken
-    (callers only invoke this after the gates closed)."""
-    if not on_tpu():
-        return
-    if _EXPECTED_DEPTH:
-        return
-    key = (who, reason)
-    if key in _FALLBACK_WARNED:
-        return
-    _FALLBACK_WARNED.add(key)
-    warnings.warn(
-        f"{who}: this configuration runs on the stepwise XLA path, not "
-        f"the fused TPU kernel — {reason}. Measured ~4x slower at the "
-        f"benchmark shapes (PERF.md). Remedy: {remedy}",
-        stacklevel=3,
-    )
+def enable_compile_cache(anchor: str) -> str:
+    """Turn on JAX's persistent compile cache for an entry script.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    nothing is changed. Otherwise the cache is ``.jax_cache/`` beside
+    ``anchor`` (the script's ``__file__``): a fixed path inside the
+    checkout, so the next run of the same checkout finds it. Returns
+    the directory in use."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(os.path.dirname(os.path.abspath(anchor)),
+                        ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
-def reset_fallback_warnings() -> None:
-    """Clear the one-time dedup set (test isolation)."""
-    _FALLBACK_WARNED.clear()
+def card_name_and_power_limit() -> str:
+    """What ``nvidia-smi --query-gpu=name,power.limit`` reports for the
+    first card (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"), or "not
+    available" where there is no such tool. The clock rate of a card
+    set below its maximum power falls under load, so every timing is
+    reported beside this line."""
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        return "not available"
+    out = subprocess.run(
+        [exe, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip() if out else "not available"
+
+
+def device_record() -> dict:
+    """The device fields every benchmark line carries."""
+    d = jax.devices()
+    return {
+        "platform": d[0].platform,
+        "device_kind": d[0].device_kind,
+        "device_count": len(d),
+        "card": card_name_and_power_limit(),
+    }

@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 
 class Sweep(enum.IntEnum):
@@ -63,16 +64,13 @@ def next_block_id(
     state: SweepState, n: int, batch: int, sweeping: int
 ) -> Tuple[jnp.ndarray, SweepState]:
     """Advance a cyclic/shuffled schedule one step, returning the
-    0-based BLOCK id — the TPU fast path consumes ``block * batch`` as a
-    dynamic-slice start (contiguous blocks avoid XLA's slow TPU row
+    0-based BLOCK id — the block paths consume ``block * batch`` as a
+    dynamic-slice start (contiguous blocks avoid a row gather and
     scatter; see oracles.base block entry points)."""
     d = num_blocks(n, batch)
     if sweeping == Sweep.RANDOM:
-        # stateless iid uniform block id: deterministic in (key, pos) so
-        # the fused drivers can draw/clamp whole windows in one
-        # vectorized pass (gen_block_ids / gen_block_ids_clamped) while
-        # reproducing this stepwise stream bit-for-bit. ``pos`` is a
-        # plain draw counter here (no epoch wrap).
+        # stateless iid uniform block id: deterministic in (key, pos).
+        # ``pos`` is a plain draw counter here (no epoch wrap).
         k = jax.random.fold_in(state.key, state.pos)
         j = jax.random.randint(k, (), 0, d, dtype=jnp.int32)
         return j, state._replace(pos=state.pos + 1)
@@ -127,71 +125,6 @@ def uniform_index(key, n: int) -> Tuple[jnp.ndarray, jnp.ndarray]:
     return jax.random.randint(sub, (), 0, n, dtype=jnp.int32), key
 
 
-def _random_window(state: SweepState, k: int, d: int):
-    """The k iid uniform block ids at draw positions pos..pos+k-1 —
-    stateless fold_in(key, position) draws, ≡ k calls of the RANDOM
-    branch of :func:`next_block_id`."""
-    s = state.pos + jnp.arange(k, dtype=jnp.int32)
-    keys = jax.vmap(lambda t: jax.random.fold_in(state.key, t))(s)
-    return jax.vmap(
-        lambda kk: jax.random.randint(kk, (), 0, d, dtype=jnp.int32)
-    )(keys)
-
-
-def _shuffled_window(state: SweepState, k: int, d: int):
-    """The k shuffled block ids at positions pos..pos+k-1 plus the
-    permutation/key chains needed to advance the state by ANY committed
-    count c ≤ k: epoch e uses the e'th permutation; each epoch boundary
-    advances the key by one split (exactly as next_block_id's
-    reshuffle). Returns (blocks, orders, keys_all) where the state
-    advanced by c is SweepState(pos=(pos+c-1)%d+1, order=orders[r],
-    key=keys_all[r]) with r = (pos+c-1)//d boundaries crossed. Chain
-    entries beyond the boundaries actually crossed are computed but
-    never committed."""
-    s = state.pos + jnp.arange(k, dtype=jnp.int32)
-    E = k // d + 2
-    e = s // d
-    q = s % d
-
-    def chain(key, _):
-        key2, sub = jax.random.split(key)
-        return key2, (key2, sub)
-
-    _, (keys_next, subs) = jax.lax.scan(chain, state.key, None, length=E)
-    perms = jax.vmap(
-        lambda sk: jax.random.permutation(sk, d).astype(jnp.int32)
-    )(subs)
-    orders = jnp.concatenate([state.order[None, :], perms], axis=0)
-    keys_all = jnp.concatenate([state.key[None], keys_next], axis=0)
-    return orders[e, q], orders, keys_all
-
-
-def gen_block_ids(
-    state: SweepState, k: int, n: int, batch: int, sweeping: int
-) -> Tuple[jnp.ndarray, SweepState]:
-    """The next ``k`` block ids of a schedule in ONE vectorized draw,
-    plus the advanced state — bit-identical to ``k`` calls of
-    :func:`next_block_id` (used by the fused multi-step drivers; a
-    sequential scan costs ~1 scalar round per step, which rivals the
-    fused kernels' whole step time)."""
-    d = num_blocks(n, batch)
-    if sweeping == Sweep.RANDOM:
-        return _random_window(state, k, d), state._replace(
-            pos=state.pos + k
-        )
-    new_pos = (state.pos + k - 1) % d + 1
-    if sweeping == Sweep.CYCLIC:
-        s = state.pos + jnp.arange(k, dtype=jnp.int32)
-        return s % d, state._replace(pos=new_pos)
-    if sweeping != Sweep.SHUFFLED:
-        raise ValueError(f"block schedules need sweeping 2 or 3; got {sweeping}")
-    blocks, orders, keys_all = _shuffled_window(state, k, d)
-    n_resh = (state.pos + k - 1) // d   # boundaries crossed in the window
-    return blocks, SweepState(
-        pos=new_pos, order=orders[n_resh], key=keys_all[n_resh]
-    )
-
-
 def clip_block_distribution(q, K: int):
     """Water-fill-clip a block distribution so no block carries more
     than 1/K mass: the LARGEST c with q̃ ∝ min(q, c) satisfying
@@ -199,23 +132,17 @@ def clip_block_distribution(q, K: int):
     solution Σmin(q, c) = K·c exactly, so every clipped block sits at
     exactly 1/K).
 
-    Why: the STRATIFIED importance schedule (slot k of a K-window draws
-    u = (k+U)/K against the inverse CDF) is distinct-by-construction
-    within a window iff every block's interval is no longer than the
-    1/K slot width — that's what lets importance-sampled SAGA ride the
-    streamed-table fused kernel at any N, where iid draws would
-    birthday-collapse the clamp (VERDICT r3 #2). The clipped q̃ is the
-    classic TRUNCATED importance distribution: hot blocks cap at ~one
-    visit per window (their 1/(d·q̃) weights bottom out at K/d — the
-    variance-bounding property of truncation).
+    The clipped q̃ is the classic TRUNCATED importance distribution:
+    hot blocks cap at a 1/K share of the draws. Finito and Point-SAGA
+    (fixed-point table methods, which need no reweighting) draw from it:
+    an anchor refreshed far more often than the others gains little,
+    and on a power-law L spread the raw q ∝ L starves the cold blocks.
 
     Host-side, float64 (f32 cumsums over many blocks skew the realized
     draws — see the facade's CDF note). Returns ``(q_tilde, clipped)``
     with ``q_tilde`` summing to 1 and ``clipped`` the number of blocks
     at the cap (0 = no clipping was needed).
     """
-    import numpy as np
-
     q = np.asarray(q, np.float64)
     d = q.size
     K = min(K, d)
@@ -237,45 +164,39 @@ def clip_block_distribution(q, K: int):
     return np.full(d, 1.0 / d), d
 
 
-def first_duplicate(blocks):
-    """Smallest j with ``blocks[j] in blocks[:j]``, else len(blocks) —
-    the clamp point for fused drivers whose kernels stream a table
-    through in/out aliasing and therefore cannot tolerate a same-launch
-    block revisit (ops.proshi_multistep's hazard contract)."""
-    K = blocks.shape[0]
-    eq = blocks[:, None] == blocks[None, :]           # eq[j, i]
-    earlier = jnp.tril(jnp.ones((K, K), bool), -1)    # i < j
-    dup = jnp.any(eq & earlier, axis=1)               # (K,) j has earlier twin
-    return jnp.where(jnp.any(dup), jnp.argmax(dup), K).astype(jnp.int32)
+SYSTEMATIC_WINDOW = 64
 
 
-def gen_block_ids_clamped(
-    state: SweepState, k: int, n: int, batch: int, sweeping: int
-) -> Tuple[jnp.ndarray, jnp.ndarray, SweepState]:
-    """The next ``k`` CANDIDATE block ids plus the clamp count ``f`` =
-    the largest prefix with all-distinct blocks, and the state advanced
-    by ``f`` draws ONLY. Because every schedule is stateless in
-    (key, position), the ``k - f`` discarded candidates are re-drawn
-    identically by the next call — so consuming f steps per launch
-    reproduces the stepwise ``next_block_id`` stream bit-for-bit.
-    Shuffled epochs are permutations, so f < k only when the window
-    crosses an epoch boundary AND the fresh permutation's head collides
-    with the old tail; random (iid) windows clamp at the birthday bound
-    ~1.25·sqrt(d). Cyclic windows with k <= d never clamp — use
-    :func:`gen_block_ids` there."""
-    d = num_blocks(n, batch)
-    if sweeping == Sweep.RANDOM:
-        blocks = _random_window(state, k, d)
-        f = first_duplicate(blocks)
-        return blocks, f, state._replace(pos=state.pos + f)
-    if sweeping != Sweep.SHUFFLED:
-        raise ValueError(
-            f"gen_block_ids_clamped serves sweeping 1 or 3; got {sweeping}"
-        )
-    blocks, orders, keys_all = _shuffled_window(state, k, d)
-    f = first_duplicate(blocks)
-    n_resh = (state.pos + f - 1) // d   # boundaries crossed in the COMMIT
-    new_pos = (state.pos + f - 1) % d + 1
-    return blocks, f, SweepState(
-        pos=new_pos, order=orders[n_resh], key=keys_all[n_resh]
+def systematic_schedule(L, N: int, B: int, dtype):
+    """Host-side (f64) build of the systematic importance schedule that
+    Finito and Point-SAGA draw from: block moduli L_j (max over each
+    contiguous block of ``B``), q_j ∝ L_j truncated at a 1/K share
+    (:func:`clip_block_distribution`, K = min(64, N/B)), and the
+    π-scale CDF cumsum(K·q̃) with its last entry snapped to exactly K.
+    Returns ``(pcum, q̃, L_blk)``; ``pcum`` in ``dtype``."""
+    d = N // B
+    K = min(SYSTEMATIC_WINDOW, d)
+    Lb = np.asarray(jax.device_get(jnp.asarray(L)), np.float64)
+    if Lb.ndim == 0:
+        Lb = np.full((N,), Lb)
+    Lblk = np.max(Lb.reshape(d, B), axis=1)
+    q, _ = clip_block_distribution(Lblk / Lblk.sum(), K)
+    pcum = np.cumsum(K * q)
+    pcum *= K / pcum[-1]
+    pcum[-1] = K
+    return jnp.asarray(pcum, dtype), q, Lblk
+
+
+def systematic_block(key, it, pcum, d: int):
+    """Block index of step ``it`` under systematic probability-
+    proportional-to-size sampling over windows of K = min(64, d) steps:
+    window w = it // K draws ONE uniform U, and slot k = it % K takes
+    the block whose interval of ``pcum`` (``systematic_schedule``)
+    contains U + k. Every window visits distinct blocks, and block j is
+    drawn at rate q̃_j per step; deterministic in (key, it)."""
+    K = min(SYSTEMATIC_WINDOW, d)
+    u = (it % K).astype(pcum.dtype) + jax.random.uniform(
+        jax.random.fold_in(key, it // K), (), pcum.dtype)
+    return jnp.minimum(
+        jnp.searchsorted(pcum, u, side="right").astype(jnp.int32), d - 1
     )

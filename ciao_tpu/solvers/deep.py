@@ -1,13 +1,11 @@
 """``deep_solve`` — the deep-accuracy endgame as ONE public API.
 
-The measured production plan for deep targets on TPU (BASELINE.md,
-PERF.md; bench.py's ``deep_target_10m``):
+The plan for deep targets (bench.py's ``deep_target_10m`` times it):
 
-1. **Stochastic stage** — (optionally staged-precision) fused SAGA via
-   :func:`ciao_tpu.solvers.staged_saga`: the streamed-table Pallas
-   kernels deliver the f32 solver floor (rel ~√N·eps of the full-
-   gradient reduction — NOT the iterate's resolution) in seconds even
-   at 10M rows.
+1. **Stochastic stage** — (optionally staged-precision) block SAGA via
+   :func:`ciao_tpu.solvers.staged_saga`: delivers the f32 solver floor
+   (rel ~√N·eps of the full-gradient reduction — NOT the iterate's
+   resolution).
 2. **Polish stage** — compensated-gradient monotone FISTA
    (:func:`ciao_tpu.solvers.fista_polish`): the same f32 rows streamed
    with two-sum chunk accumulation push the gradient noise ~3 orders
@@ -18,12 +16,11 @@ PERF.md; bench.py's ``deep_target_10m``):
    the oracle's ``hess_weight_from_margin`` — least-squares, logistic,
    Huber, squared-hinge globally; Poisson per trust region).
 
-Measured on the 10.49M×100 planted lasso (BENCH_r03/r04): the plan
-reaches rel 1e-6 in ~0.95 s total where every monolithic f32 solver
-floors at rel ~4e-5 — and the reference (f64-on-CPU throughout,
-``src/algorithms/Finito/Finito_basic.jl:14``) would need thousands of
-seconds for the same row reads. ``deep_solve`` packages exactly that
-plan; bench.py's deep-target line calls it.
+On the 10.49M×100 planted lasso every monolithic f32 solver floors at
+rel ~4e-5; this plan reaches rel 1e-6 (chip_smoke.py's ``deep`` phase
+checks it), where the reference (f64-on-CPU throughout,
+``src/algorithms/Finito/Finito_basic.jl:14``) pays f64 for every row
+read.
 """
 
 from __future__ import annotations
@@ -85,9 +82,9 @@ def deep_solve(
     observe=None,
 ) -> Tuple[jnp.ndarray, DeepSolveInfo]:
     """Solve ``min (1/N) Σ f_i + g`` to DEEP relative accuracy (past the
-    monolithic-f32 gradient floor) on TPU: staged/streamed fused SAGA to
-    its plateau, then compensated-gradient FISTA polish with an
-    automatic curvature-bound stepsize.
+    monolithic-f32 gradient floor): staged block SAGA to its plateau,
+    then compensated-gradient FISTA polish with an automatic
+    curvature-bound stepsize.
 
     ``F`` is a rank-1 coefficient oracle in f32 (or bf16) storage —
     dense rows preferred (the margin protocol ``coeff_from_margin`` +
@@ -102,8 +99,8 @@ def deep_solve(
     Zero / any separable prox). For Poisson pass ``margin_slack``
     (~0.5): its curvature weight is a trust-region bound around the
     stochastic stage's solution. ``importance_sampling=True`` runs the
-    stochastic stage with Lipschitz-proportional draws (fused at any N
-    via the systematic-πps schedule) — the right stage-1 knob for
+    stochastic stage with Lipschitz-proportional draws — the right
+    stage-1 knob for
     ill-conditioned data; the polish stage is sampling-free.
 
     The polish stops early when the fixed-point residual stalls
@@ -115,9 +112,8 @@ def deep_solve(
 
     Accuracy bar anchor: the reference is f64 end-to-end
     (``/root/reference/src/algorithms/Finito/Finito_basic.jl:14-20``,
-    ``test/test_logistic_l1.jl:48-58``) — this API is how a TPU user
-    gets the accuracy the reference's dtype gives for free, at TPU
-    speed (measured: rel 1e-6 on the 10M×100 BASELINE lasso in ~1 s).
+    ``test/test_logistic_l1.jl:48-58``) — this API is how an f32 user
+    gets the accuracy the reference's dtype gives for free.
     """
     if N is None:
         N = F.num_terms

@@ -83,13 +83,7 @@ def deep_solve_sharing(
         gamma=gamma, sweeping=sweeping,
         minibatch=(batch > 1, batch), seed=seed,
     )
-    # the deep sharing route is stepwise BY DESIGN ((N, n) quadratic
-    # blocks are not rank-1 — no fused kernel exists for the class), so
-    # the facade's fused-fallback warning carries no signal here
-    from ciao_tpu.runtime import expected_fallback
-
-    with expected_fallback():
-        x0j, F, g, cfg, init = facade._setup(jnp.asarray(x0), F, g, L, N)
+    x0j, F, g, cfg, init = facade._setup(jnp.asarray(x0), F, g, L, N)
     state = init()
     d = cfg.N // cfg.batch
     steps = chunk_epochs * d

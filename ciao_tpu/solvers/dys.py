@@ -25,11 +25,10 @@ tests: h = Zero reduces to forward-backward on x_g (``_fb_step``
 trajectory started from prox_g(x0)); f = 0 is Douglas-Rachford
 splitting, exposed as :func:`DouglasRachford`.
 
-TPU shape: the only O(N) work is the full gradient at x_g — ONE fused
-streaming pass over the oracle rows (`solvers.fb.full_gradient`, the
-same `coeff_apply_all` read FISTA uses, measured ~1.9 ms/pass f32 at
-the PERF.md 262k×1024 config); the two proxes and the z-algebra are
-O(n) VPU work XLA fuses around it. No table, no sampling — state is
+Data path: the only O(N) work is the full gradient at x_g — ONE pass
+over the oracle rows (`solvers.fb.full_gradient`, the same read FISTA
+uses); the two proxes and the z-algebra are O(n) elementwise work XLA
+fuses around it. No table, no sampling — state is
 three (n,) vectors.
 
 Reference for the two-term behavior being generalized:
@@ -52,13 +51,11 @@ from ciao_tpu.solvers.base import (
     real_dtype_of,
     run_solver_loop,
 )
-from ciao_tpu.solvers.fb import full_gradient, fused_full_grad_available
+from ciao_tpu.solvers.fb import full_gradient
 
 
 class DYSCfg(NamedTuple):
     N: int
-    fused: bool = False  # one-pass Pallas full-gradient (coeff_apply_all)
-    fused_precision: str = "highest"
 
 
 class DYSState(NamedTuple):
@@ -91,7 +88,7 @@ def _dys_step(F, g, h, cfg: DYSCfg, state: DYSState,
     gamma = state.gamma
     xg = g.prox_only(state.z, gamma)
     if grad_fn is None:
-        grad = full_gradient(F, cfg.N, xg, cfg.fused, cfg.fused_precision)
+        grad = full_gradient(F, cfg.N, xg)
     else:
         grad = grad_fn(xg)
     xh = h.prox_only(2.0 * xg - state.z - gamma * grad, gamma)
@@ -128,13 +125,11 @@ class DavisYin:
     maxit: int = 1000
     verbose: bool = False
     freq: int = 100
-    fused_precision: str = "highest"
 
     def __post_init__(self):
         assert self.gamma is None or self.gamma > 0
         assert 0 < self.lam < 2
         assert self.maxit > 0 and self.freq > 0
-        assert self.fused_precision in ("highest", "default")
 
     def _setup(self, x0, F, g, h, L, N):
         x0 = jnp.asarray(x0)
@@ -164,9 +159,7 @@ class DavisYin:
                     "stepsize γ"
                 )
         lam = jnp.asarray(self.lam, rdt)
-        fused = fused_full_grad_available(F, x0, N)
-        cfg = DYSCfg(N=N, fused=fused,
-                     fused_precision=self.fused_precision)
+        cfg = DYSCfg(N=N)
         init = lambda: dys_init(F, g, h, x0, gamma, lam, cfg)
         return x0, F, g, h, cfg, init
 

@@ -13,9 +13,9 @@ comparisons in-framework:
 
 with y = x (ISTA) or the Nesterov extrapolation
 y⁺ = x⁺ + ((t−1)/t⁺)(x⁺ − x), t⁺ = (1+√(1+4t²))/2 (FISTA, the O(1/k²)
-rate). On TPU one step is ONE full-pass fused row read
-(``grad_sum_all`` — the same streaming reduction as the SVRG anchor)
-plus an O(n) prox: entirely bandwidth-bound, no table, no sampling.
+rate). One step is ONE full-pass row read (``grad_sum_all`` — the same
+reduction as the SVRG anchor) plus an O(n) prox: entirely
+bandwidth-bound, no table, no sampling.
 
 Default γ = 1/mean(L): each f_i has modulus L_i, so the full smooth
 term (1/N)Σf_i has modulus ≤ mean(L_i).
@@ -31,7 +31,6 @@ import jax
 import jax.numpy as jnp
 
 from ciao_tpu.prox import Zero
-from ciao_tpu import runtime
 from ciao_tpu.solvers.base import (
     SolverIterable,
     real_dtype_of,
@@ -42,8 +41,6 @@ from ciao_tpu.solvers.base import (
 class FBCfg(NamedTuple):
     N: int
     fast: bool = False   # Nesterov extrapolation (FISTA)
-    fused: bool = False  # one-pass Pallas full-gradient (coeff_apply_all)
-    fused_precision: str = "highest"  # MXU dots in the fused pass
 
 
 class FBState(NamedTuple):
@@ -70,50 +67,15 @@ def fb_init(F, g, x0, gamma, cfg: FBCfg) -> FBState:
     )
 
 
-def full_gradient(F, N, y, fused: bool, precision: str = "highest"):
-    """∇((1/N)Σf_i)(y) as ONE streaming pass when ``fused`` (the fused
-    ``coeff_apply_all`` reads coefficients + gradient sum together; the
-    XLA ``grad_sum_all`` costs ~2 passes — measured 3.24 → ~1.8 ms/step
-    at the PERF.md config). Shared by every deterministic full-gradient
+def full_gradient(F, N, y):
+    """∇((1/N)Σf_i)(y) — shared by every deterministic full-gradient
     solver (FB/FISTA here, Davis-Yin, Condat-Vũ)."""
-    if fused:
-        from ciao_tpu.ops.fused_block import (
-            _pick_tile, coeff_apply_all, oracle_scalar_consts,
-            rows_scale_row,
-        )
-
-        rows, offs = F.coeff_rows_data()
-        scale, mode, _, aux = oracle_scalar_consts(F, None)
-        tile = _pick_tile(N, N, y.size, esize=rows.dtype.itemsize)
-        _, gsum = coeff_apply_all(
-            rows, offs[None, :], y[None, :],
-            jnp.stack([scale, mode, aux])[None, :], tile,
-            precision=precision, rs1=rows_scale_row(F),
-        )
-        return gsum[0] / N
     return F.grad_sum_all(y) / N
-
-
-def fused_full_grad_available(F, x0, N) -> bool:
-    """Gate for the one-pass fused full-gradient read (mirrors the
-    per-family fused gates: TPU backend, f32, lane-aligned n, rank-1
-    coefficient oracle)."""
-    if x0.dtype != jnp.float32:
-        return False
-    from ciao_tpu.ops.fused_block import _pick_tile
-
-    return (
-        runtime.on_tpu()
-        and x0.size % 128 == 0
-        and _pick_tile(N, N, x0.size) >= 128
-        and hasattr(F, "coeff_rows_data")
-        and getattr(F, "supports_coeff", False)
-    )
 
 
 def _fb_step(F, g, cfg: FBCfg, state: FBState) -> FBState:
     gamma = state.gamma
-    grad = full_gradient(F, cfg.N, state.y, cfg.fused, cfg.fused_precision)
+    grad = full_gradient(F, cfg.N, state.y)
     x_new = g.prox_only(state.y - gamma * grad, gamma)
     if cfg.fast:
         t_new = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * state.t * state.t))
@@ -147,12 +109,10 @@ class ForwardBackward:
     verbose: bool = False
     freq: int = 100
     fast: bool = False
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc MXU dots
 
     def __post_init__(self):
         assert self.gamma is None or self.gamma > 0
         assert self.maxit > 0 and self.freq > 0
-        assert self.fused_precision in ("highest", "default")
 
     def _setup(self, x0, F, g, L, N):
         x0 = jnp.asarray(x0)
@@ -175,19 +135,7 @@ class ForwardBackward:
                     "or a stepsize γ"
                 )
             gamma = 1.0 / jnp.mean(jnp.asarray(L, rdt))
-        fused = False
-        if x0.dtype == jnp.float32:
-            from ciao_tpu.ops.fused_block import _pick_tile
-
-            fused = (
-                runtime.on_tpu()
-                and x0.size % 128 == 0
-                and _pick_tile(N, N, x0.size) >= 128
-                and hasattr(F, "coeff_rows_data")
-                and getattr(F, "supports_coeff", False)
-            )
-        cfg = FBCfg(N=N, fast=self.fast, fused=fused,
-                    fused_precision=self.fused_precision)
+        cfg = FBCfg(N=N, fast=self.fast)
         init = lambda: fb_init(F, g, x0, gamma, cfg)
         return x0, F, g, cfg, init
 

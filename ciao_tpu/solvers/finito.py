@@ -2,8 +2,8 @@
 adaptive (backtracking) variants, with minibatching and three sweeping
 strategies.
 
-Re-design of the reference kernels (capability parity, TPU-first data
-layout):
+Re-design of the reference kernels (capability parity, accelerator-first
+data layout):
 
   * basic:    reference ``src/algorithms/Finito/Finito_basic.jl`` —
               table s_i = x_i - (γ_i/N) ∇f_i(x_i) kept as ONE (N, n)
@@ -13,8 +13,8 @@ layout):
               batch reads the same z (Finito_basic.jl:110-118).
   * LFinito:  reference ``Finito_LFinito.jl`` — O(n) memory; one iterate
               = full-gradient pass + a ``lax.scan`` over minibatch
-              blocks, with the per-block gradient-difference sum fused
-              into a single matmul pair via ``grad_sum_diff``.
+              blocks, with the per-block gradient-difference sum taken
+              as a single matmul pair via ``grad_sum_diff``.
   * adaptive: reference ``Finito_adaptive.jl`` — per-index backtracking
               line search as a ``lax.while_loop``; early abort on γ
               underflow surfaces as ``Status.GAMMA_UNDERFLOW`` in the
@@ -38,7 +38,6 @@ from ciao_tpu.prox import Zero
 from ciao_tpu.sampling import (
     Sweep,
     SweepState,
-    gen_block_ids,
     init_sweep,
     next_block,
     next_block_id,
@@ -62,22 +61,14 @@ class FinitoCfg(NamedTuple):
     alpha: float
     tol_b: float = 1e-9
     cyclic_pos0: int = 1  # basic starts its cyclic sweep at block 2 (see sampling)
-    fused: bool = False   # Pallas one-pass table refresh (TPU, f32)
-    fused_precision: str = "highest"  # MXU dots in fused kernels
-    # streamed-table fused kernel for the coefficient variant beyond
-    # the VMEM slab cap (any N): (1, N) c row through clamped aliased
-    # windows, (d, n) anchors VMEM-resident, per-block Σ1/γ pre-gathered
-    fused_stream: bool = False
-    # Lipschitz-proportional block draws (round 5, VERDICT r4 #6): the
-    # SAGA systematic-πps clipped schedule replaces the RANDOM sweep.
+    # Lipschitz-proportional block draws (sampling.systematic_block over
+    # the stateless (key, it) stream) replace the RANDOM sweep.
     # Finito is a pure anchor-table method — its fixed point (all
     # anchors consistent at z*) is schedule-independent, so non-uniform
     # draws need no correction anywhere: hot (large-L) anchors are
     # simply refreshed more often, and their 1/γ_i ∝ L_i weights
     # already dominate the av mean. Per-index γ_i = αN/L_i unchanged.
     importance: bool = False
-    istrat: bool = True
-    iwin: int = 64
 
 
 class FinitoBasicState(NamedTuple):
@@ -112,12 +103,9 @@ class FinitoCoeffState(NamedTuple):
     sweep: SweepState
     it: jnp.ndarray
     status: jnp.ndarray
-    # importance mode only (leafless None otherwise): π-scale CDF of
-    # the clipped block distribution + the 1/(d·q̃) row kept solely for
-    # draw-stream parity with saga._gen_importance_draws (Finito
-    # ignores the weight — see FinitoCfg.importance).
+    # importance mode only (leafless None otherwise): the π-scale CDF
+    # of sampling.systematic_schedule
     qcum: object = None
-    qinv: object = None
 
     @property
     def solution(self):
@@ -181,9 +169,8 @@ def finito_basic_init(F, g, x0, gamma, key, cfg: FinitoCfg) -> FinitoBasicState:
 
 def _use_contiguous(cfg) -> bool:
     """Cyclic/shuffled sweeps with evenly-dividing batches pick STATIC
-    CONTIGUOUS blocks (Finito_basic.jl:50-58) — served by dynamic-slice
-    DMAs instead of gather/scatter (the scatter is ~10x off HBM
-    bandwidth on TPU; the slice path is ~4x faster end-to-end)."""
+    CONTIGUOUS blocks (Finito_basic.jl:50-58) — served by dynamic
+    slices instead of a row gather and scatter."""
     return cfg.sweeping != Sweep.RANDOM and cfg.N % cfg.batch == 0
 
 
@@ -195,23 +182,14 @@ def _finito_basic_step(F, g, cfg: FinitoCfg, state: FinitoBasicState) -> FinitoB
     if _use_contiguous(cfg):
         block, sweep = next_block_id(state.sweep, N, B, cfg.sweeping)
         start = block * B
-        if cfg.fused:
-            # Pallas: gradient + table write + innovation in ONE VMEM pass
-            s, innov = F.fused_finito_block(
-                state.s, state.gamma, state.z, start, B,
-                1.0 / N, state.hat_gamma,
-                precision=cfg.fused_precision,
-            )
-            av = state.av + innov
-        else:
-            gi = jax.lax.dynamic_slice_in_dim(state.gamma, start, B)
-            G_B = F.grad_block(state.z, start, B)
-            s_new = state.z[None, :] - (gi / N)[:, None] * G_B
-            s_old = jax.lax.dynamic_slice_in_dim(state.s, start, B, 0)
-            av = state.av + jnp.sum(
-                (s_new - s_old) * (state.hat_gamma / gi)[:, None], axis=0
-            )
-            s = jax.lax.dynamic_update_slice_in_dim(state.s, s_new, start, 0)
+        gi = jax.lax.dynamic_slice_in_dim(state.gamma, start, B)
+        G_B = F.grad_block(state.z, start, B)
+        s_new = state.z[None, :] - (gi / N)[:, None] * G_B
+        s_old = jax.lax.dynamic_slice_in_dim(state.s, start, B, 0)
+        av = state.av + jnp.sum(
+            (s_new - s_old) * (state.hat_gamma / gi)[:, None], axis=0
+        )
+        s = jax.lax.dynamic_update_slice_in_dim(state.s, s_new, start, 0)
     else:
         idx, mask, sweep = next_block(state.sweep, N, B, cfg.sweeping)
         gi = state.gamma[idx]                             # (B,)
@@ -289,11 +267,10 @@ def _finito_coeff_step(F, g, cfg: FinitoCfg, state: FinitoCoeffState):
     N, B = cfg.N, cfg.batch
     hat = state.hat_gamma
     if cfg.importance:
-        from ciao_tpu.solvers.saga import _gen_importance_draws
+        from ciao_tpu.sampling import systematic_block
 
-        starts, _ = _gen_importance_draws(
-            state.sweep.key, state.it, cfg, state.qcum, state.qinv, 1)
-        block = starts[0] // B
+        block = systematic_block(state.sweep.key, state.it, state.qcum,
+                                 N // B)
         sweep = state.sweep          # stateless (key, it) schedule
     else:
         block, sweep = next_block_id(state.sweep, N, B, cfg.sweeping)
@@ -339,10 +316,8 @@ def _lfinito_step(F, g, cfg: FinitoCfg, state: LFinitoState) -> LFinitoState:
 
         av += (hat_γ/N) Σ_B [∇f_i(z_full) - ∇f_i(z)] + hat_γ (Σ_B 1/γ_i)(z - z_full)
 
-    — the bracketed sum is ``grad_sum_diff`` (a fused matmul pair for
+    — the bracketed sum is ``grad_sum_diff`` (a matmul pair for
     linear-gradient oracles)."""
-    if cfg.fused:
-        return _lfinito_step_fused(F, g, cfg, state)
     N, B = cfg.N, cfg.batch
     d = num_blocks(N, B)
     hat = state.hat_gamma
@@ -381,71 +356,6 @@ def _lfinito_step(F, g, cfg: FinitoCfg, state: LFinitoState) -> LFinitoState:
 
     (av, z), _ = jax.lax.scan(block_body, (av, state.z), order)
     return state._replace(av=av, z=z, z_full=z_full, sweep=sweep, it=state.it + 1)
-
-
-def _lfinito_step_fused(F, g, cfg: FinitoCfg, state: LFinitoState):
-    """One LFinito epoch as TWO kernel launches: the anchor refresh
-    (coefficients + full gradient sum in one pass, ops.coeff_apply_all)
-    and the whole block sweep with av/z carried in VMEM
-    (ops.lfinito_sweep_multistep) — two passes over the oracle rows per
-    epoch where the XLA path needs four. Visit order and RNG flow are
-    identical to ``_lfinito_step``."""
-    from ciao_tpu.ops.fused_block import (
-        _pick_tile, coeff_apply_all, lfinito_sweep_chunked,
-        oracle_scalar_consts, rows_scale_row, rows_scale_slab,
-    )
-
-    N, B = cfg.N, cfg.batch
-    d = num_blocks(N, B)
-    hat = state.hat_gamma
-    rows, offs = F.coeff_rows_data()
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-
-    z_full = g.prox_only(state.av, hat)
-    tile = _pick_tile(B, N, z_full.size, esize=rows.dtype.itemsize)
-    c1, gsum = coeff_apply_all(
-        rows, offs[None, :], z_full[None, :],
-        jnp.stack([scale, mode, aux])[None, :], tile,
-        precision=cfg.fused_precision,
-        rs1=rows_scale_row(F),
-    )
-    av = z_full - (hat / N) * gsum[0]
-
-    if cfg.sweeping == Sweep.SHUFFLED:
-        key, sub = jax.random.split(state.sweep.key)
-        order = jax.random.permutation(sub, d).astype(jnp.int32)
-        sweep = state.sweep._replace(key=key, order=order)
-    else:
-        order = state.sweep.order
-        sweep = state.sweep
-
-    from ciao_tpu.ops.fused_block import SLAB_ROWS
-
-    slab = (SLAB_ROWS, N // SLAB_ROWS)
-    b8 = offs.reshape(slab)
-    c8 = c1.reshape(slab)
-    invg = jnp.sum((1.0 / state.gamma).reshape(d, B), axis=1)
-    starts = order * B          # (d,) visit order
-    invg_v = invg[order]        # Σ 1/γ of the k'th VISITED block
-    scalars = jnp.stack(
-        [
-            scale,
-            jnp.asarray(hat, jnp.float32),
-            jnp.asarray(hat * lam, jnp.float32),
-            jnp.asarray(1.0 / N, jnp.float32),
-            mode,
-            aux,
-        ]
-    )[None, :]
-    zf2 = z_full[None, :]
-
-    av2, z2 = lfinito_sweep_chunked(
-        rows, b8, c8, starts, invg_v, av[None, :], z_full[None, :],
-        scalars, B, precision=cfg.fused_precision, rs8=rows_scale_slab(F),
-    )
-    return state._replace(
-        av=av2[0], z=z2[0], z_full=z_full, sweep=sweep, it=state.it + 1
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -628,177 +538,8 @@ _STEPS = {
 }
 
 
-def _finito_run_fused(F, g, state, cfg: FinitoCfg, steps: int):
-    """Fused multi-step driver for the coefficient variant: K block
-    steps per Pallas launch (ops.finito_coeff_multistep), with the
-    sweep schedule advanced by the SAME next_block_id stream as the
-    stepwise path (exact trajectory parity)."""
-    from ciao_tpu.ops import finito_coeff_multistep
-    from ciao_tpu.ops.fused_block import SLAB_ROWS, rows_scale_slab
-
-    N, B = cfg.N, cfg.batch
-    K = min(128, steps)
-    L = steps // K
-    rem = steps - L * K
-    rows, offs = F.coeff_rows_data()
-    slab = (SLAB_ROWS, N // SLAB_ROWS)
-    b8 = offs.reshape(slab)
-    rs8 = rows_scale_slab(F)
-    from ciao_tpu.ops.fused_block import oracle_scalar_consts
-
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    hat = state.hat_gamma
-    scalars = jnp.stack(
-        [
-            scale,
-            jnp.asarray(1.0 / N, jnp.float32),
-            jnp.asarray(hat, jnp.float32),
-            jnp.asarray(hat * lam, jnp.float32),
-            mode,
-            aux,
-        ]
-    )[None, :]
-    invg2 = state.invg[None, :].astype(jnp.float32)
-
-    def body(carry, it0):
-        c8, zb, z2, av2, sweep = carry
-        if cfg.importance:
-            # stateless (key, it) stream; the slab kernel is revisit-
-            # hazard-free so no window alignment is needed — the
-            # vectorized draws equal the stepwise stream by position
-            from ciao_tpu.solvers.saga import _gen_importance_draws
-
-            starts, _ = _gen_importance_draws(
-                state.sweep.key, it0, cfg, state.qcum, state.qinv, K)
-        else:
-            blocks, sweep = gen_block_ids(sweep, K, N, B, cfg.sweeping)
-            starts = blocks * B
-        c8, zb, z2, av2 = finito_coeff_multistep(
-            rows, b8, starts, c8, zb, invg2, z2, av2, scalars, B,
-            precision=cfg.fused_precision, rs8=rs8,
-        )
-        return (c8, zb, z2, av2, sweep), None
-
-    its0 = state.it + K * jnp.arange(L, dtype=jnp.int32)
-    (c8, zb, z2, av2, sweep), _ = jax.lax.scan(
-        body,
-        (
-            state.c.reshape(slab),
-            state.zb,
-            state.z[None, :],
-            state.av[None, :],
-            state.sweep,
-        ),
-        its0,
-    )
-    state = state._replace(
-        c=c8.reshape(N), zb=zb, z=z2[0], av=av2[0], sweep=sweep,
-        it=state.it + jnp.asarray(L * K, jnp.int32),
-    )
-    for _ in range(rem):
-        state = _finito_coeff_step(F, g, cfg, state)
-    return state
-
-
-def _finito_run_fused_streamed(F, g, state, cfg: FinitoCfg, steps: int):
-    """Any-N fused driver for the coefficient variant: the (1, N) c row
-    streams through clamped launches (ops.finito_coeff_multistep_
-    streamed — the saga fused_stream machinery with the Finito algebra
-    and the (d, n) anchor table VMEM-resident). Cyclic windows of
-    K ≤ d blocks are distinct (no clamp); shuffled windows clamp at the
-    epoch-boundary collision via gen_block_ids_clamped. The committed
-    stream ≡ stepwise next_block_id bit-for-bit."""
-    from ciao_tpu.ops.fused_block import (
-        finito_coeff_multistep_streamed,
-        oracle_scalar_consts,
-        rows_scale_row,
-    )
-    from ciao_tpu.sampling import gen_block_ids_clamped
-    from ciao_tpu.solvers.saga import run_clamped_stream
-
-    N, B = cfg.N, cfg.batch
-    d = N // B
-    K = min(cfg.iwin, d) if cfg.importance else min(64, d)
-    rows, offs = F.coeff_rows_data()
-    b1 = offs[None, :]
-    rs1 = rows_scale_row(F)
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    hat = state.hat_gamma
-    scalars = jnp.stack([
-        scale,
-        jnp.asarray(1.0 / N, jnp.float32),
-        jnp.asarray(hat, jnp.float32),
-        jnp.asarray(hat * lam, jnp.float32),
-        mode,
-        aux,
-    ])[None, :]
-    invg = state.invg.astype(jnp.float32)
-    interp = jax.default_backend() != "tpu"
-
-    def launch(carry):
-        c1, zb, z2, av2, sweep, it = carry
-        if cfg.importance:
-            from ciao_tpu.sampling import first_duplicate
-            from ciao_tpu.solvers.saga import _gen_importance_draws
-
-            starts, _ = _gen_importance_draws(
-                state.sweep.key, it, cfg, state.qcum, state.qinv, K)
-            blocks = starts // B
-            fcl = first_duplicate(blocks)   # = K within aligned windows
-        elif cfg.sweeping == Sweep.CYCLIC:
-            blocks, sweep = gen_block_ids(sweep, K, N, B, cfg.sweeping)
-            fcl = jnp.asarray(K, jnp.int32)  # K ≤ d cyclic: no clamp
-        else:
-            blocks, fcl, sweep = gen_block_ids_clamped(
-                sweep, K, N, B, cfg.sweeping
-            )
-        c1, zb, z2, av2 = finito_coeff_multistep_streamed(
-            rows, b1, blocks * B, invg[blocks], c1, zb, z2, av2,
-            scalars, B, precision=cfg.fused_precision, rs1=rs1, f=fcl,
-            interpret=interp,
-        )
-        return (c1, zb, z2, av2, sweep, it + fcl)
-
-    if cfg.importance:
-        # stratified schedule: WINDOW-ALIGNED launches (the SAGA
-        # fused_stream pattern — same-window blocks are distinct by
-        # construction, so aligned launches never clamp; launch iff
-        # it % K == 0, else one stepwise step)
-        target = state.it + jnp.asarray(steps, jnp.int32)
-
-        def do_launch(st):
-            c1, zb, z2, av2, sweep, it = launch(
-                (st.c[None, :], st.zb, st.z[None, :], st.av[None, :],
-                 st.sweep, st.it)
-            )
-            return st._replace(c=c1[0], zb=zb, z=z2[0], av=av2[0],
-                               sweep=sweep, it=it)
-
-        def wbody(st):
-            aligned = (st.it % K == 0) & (st.it + K <= target)
-            return jax.lax.cond(
-                aligned, do_launch,
-                lambda s: _finito_coeff_step(F, g, cfg, s), st,
-            )
-
-        return jax.lax.while_loop(lambda st: st.it < target, wbody, state)
-
-    return run_clamped_stream(
-        state, steps, K,
-        (state.c[None, :], state.zb, state.z[None, :],
-         state.av[None, :], state.sweep), launch,
-        lambda st, c: st._replace(c=c[0][0], zb=c[1], z=c[2][0],
-                                  av=c[3][0], sweep=c[4], it=c[5]),
-        lambda st: _finito_coeff_step(F, g, cfg, st),
-    )
-
-
 @partial(jax.jit, static_argnames=("cfg", "variant", "steps"))
 def finito_run(F, g, state, cfg: FinitoCfg, variant: str, steps: int):
-    if variant == "basic_coeff" and cfg.fused and steps >= 8:
-        return _finito_run_fused(F, g, state, cfg, steps)
-    if variant == "basic_coeff" and cfg.fused_stream and steps >= 8:
-        return _finito_run_fused_streamed(F, g, state, cfg, steps)
     step = _guarded(_STEPS[variant])
 
     def body(s, _):
@@ -816,40 +557,6 @@ def finito_step(F, g, state, cfg: FinitoCfg, variant: str):
 # ---------------------------------------------------------------------------
 # facade
 # ---------------------------------------------------------------------------
-
-def _warn_finito_fallback(who, F, g, x0, kernel_ok):
-    """One-time TPU warning when a Finito/LFinito config lands on the
-    stepwise XLA path (VERDICT r3 weak #1 — the SAGA pattern), naming
-    the first closed gate and the remedy. Complex dtypes exempt."""
-    from ciao_tpu import runtime
-
-    if not runtime.on_tpu() or jnp.iscomplexobj(x0):
-        return
-    from ciao_tpu.prox import NormL1
-
-    if x0.dtype != jnp.float32:
-        runtime.warn_fused_fallback(
-            who, f"the iterate dtype is {x0.dtype} and the fused "
-            "kernels are f32-only",
-            "use float32 iterates — precision belongs in the oracle "
-            "storage (with_storage) and the deep_solve polish stage",
-        )
-    elif not kernel_ok or not (hasattr(F, "coeff_rows_data")
-                               and isinstance(g, (NormL1, Zero))):
-        runtime.warn_fused_fallback(
-            who, "the in-kernel prox covers NormL1/Zero only, and the "
-            "oracle must expose dense rows (coeff_rows_data)",
-            "use g=NormL1 or g=Zero and a dense-rows oracle",
-        )
-    else:
-        runtime.warn_fused_fallback(
-            who, "the kernel shape gates failed (n must be a multiple "
-            "of 128 lanes; N divisible by batch; the streamed any-N "
-            "kernel additionally needs N/batch >= 64 blocks)",
-            "zero-pad n to the 128-lane boundary and pick batch so "
-            "N/batch >= 64",
-        )
-
 
 @dataclasses.dataclass(frozen=True)
 class Finito:
@@ -877,17 +584,15 @@ class Finito:
     tol: float = 1e-8
     tol_b: float = 1e-9
     table: str = "auto"  # "full" (N,n) | "coeff" (N,) | "auto" (coeff if rank-1)
-    # Lipschitz-proportional block draws over the RANDOM sweep (round
-    # 5): the SAGA systematic-πps clipped schedule drives which anchors
-    # refresh; needs sweeping=1, the coefficient table, L and
-    # N % batch == 0. Per-index γ_i = αN/L_i are unchanged (Finito's
-    # fixed point is schedule-independent — see FinitoCfg.importance).
+    # Lipschitz-proportional block draws over the RANDOM sweep: blocks
+    # drawn by sampling.systematic_block decide which anchors refresh; needs
+    # sweeping=1, the coefficient table, L and N % batch == 0.
+    # Per-index γ_i = αN/L_i are unchanged (Finito's fixed point is
+    # schedule-independent — see FinitoCfg.importance).
     importance_sampling: bool = False
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc MXU dots
     seed: int = 0
 
     def __post_init__(self):
-        assert self.fused_precision in ("highest", "default")
         if self.importance_sampling:
             if self.sweeping != 1:
                 raise ValueError(
@@ -929,55 +634,12 @@ class Finito:
         if g is None:
             g = Zero()
         rdt = real_dtype_of(x0)
-        fused = False
-        if (
-            self._variant == "basic"
-            and self.sweeping != Sweep.RANDOM
-            and N % self.minibatch[1] == 0
-            and hasattr(F, "fused_finito_block")
-        ):
-            from ciao_tpu.ops import fused_block_available
-
-            # full-table kernel: f32/bf16 rows only (int8 rows need the
-            # coeff path — the f32 table traffic dominates)
-            fused = (
-                x0.dtype == jnp.float32
-                and fused_block_available(
-                    N, x0.size, self.minibatch[1], x0.dtype
-                )
-                and getattr(F, "row_scale", None) is None
-            )
-        elif (
-            self._variant == "lfinito"
-            and N % self.minibatch[1] == 0
-            and getattr(F, "supports_coeff", False)
-            and hasattr(F, "coeff_rows_data")
-        ):
-            # whole-epoch fused sweep (anchor coefficients + in-kernel
-            # prox); needs an L1/Zero prox for the in-kernel threshold
-            from ciao_tpu.ops import lfinito_sweep_available
-            from ciao_tpu.prox import NormL1
-
-            fused = (
-                x0.dtype == jnp.float32
-                and lfinito_sweep_available(
-                    N, x0.size, self.minibatch[1], x0.dtype
-                )
-                and isinstance(g, (NormL1, Zero))
-            )
-            if not fused:
-                _warn_finito_fallback(
-                    "Finito(LFinito=True)", F, g, x0,
-                    x0.dtype == jnp.float32 and isinstance(g, (NormL1,
-                                                               Zero)))
         cfg = FinitoCfg(
             N=N,
             batch=self.minibatch[1],
             sweeping=self.sweeping,
             alpha=float(self.alpha),
             tol_b=float(self.tol_b),
-            fused=fused,
-            fused_precision=self.fused_precision,
         )
         key = jax.random.PRNGKey(self.seed)
         variant = self._variant
@@ -1001,11 +663,8 @@ class Finito:
                     raise ValueError(
                         "Finito importance_sampling needs a rank-1 "
                         "oracle and N divisible by batch")
-                qcum = qinv = None
-                iwin = 64
+                qcum = None
                 if self.importance_sampling:
-                    # the SAGA facade's schedule construction verbatim
-                    # (f64 host build; clipped; π-scale CDF)
                     if L is None:
                         raise ValueError(
                             "Finito importance_sampling: provide L")
@@ -1013,63 +672,15 @@ class Finito:
                         raise ValueError(
                             "Finito importance_sampling: real dtypes "
                             "only")
-                    from ciao_tpu.sampling import clip_block_distribution
+                    from ciao_tpu.sampling import systematic_schedule
 
-                    Lb64 = np.asarray(
-                        jax.device_get(jnp.asarray(L)), np.float64)
-                    if Lb64.ndim == 0:
-                        Lb64 = np.full((N,), Lb64)
-                    d_imp = N // cfg.batch
-                    Lblk64 = np.max(Lb64.reshape(d_imp, cfg.batch), axis=1)
-                    q64 = Lblk64 / np.sum(Lblk64)
-                    iwin = min(64, d_imp)
-                    q64, _ = clip_block_distribution(q64, iwin)
-                    qcum64 = np.cumsum(iwin * q64)
-                    qcum64 *= iwin / qcum64[-1]
-                    qcum64[-1] = iwin
-                    qcum = jnp.asarray(qcum64, rdt)
-                    qinv = jnp.asarray(1.0 / (d_imp * q64), rdt)
-                    cfg = cfg._replace(importance=True, istrat=True,
-                                       iwin=iwin)
+                    qcum, _, _ = systematic_schedule(L, N, cfg.batch, rdt)
+                    cfg = cfg._replace(importance=True)
                 if self.table in ("auto", "coeff") and coeff_ok:
                     variant = "basic_coeff"
-                    # K-steps-per-launch fused kernel (TPU, f32, L1/Zero)
-                    from ciao_tpu.ops import finito_multistep_available
-                    from ciao_tpu.prox import NormL1
-
-                    from ciao_tpu.ops.fused_block import (
-                        finito_multistep_streamed_available,
-                    )
-
-                    kernel_ok = (
-                        x0.dtype == jnp.float32
-                        and hasattr(F, "coeff_rows_data")
-                        and isinstance(g, (NormL1, Zero))
-                    )
-                    fused = kernel_ok and finito_multistep_available(
-                        N, x0.size, cfg.batch, x0.dtype
-                    )
-                    cfg = cfg._replace(
-                        fused=fused,
-                        # beyond the slab cap: the streamed-table kernel
-                        fused_stream=(
-                            kernel_ok and not fused
-                            and finito_multistep_streamed_available(
-                                N, x0.size, cfg.batch, x0.dtype
-                            )
-                        ),
-                    )
-                    if not (cfg.fused or cfg.fused_stream):
-                        _warn_finito_fallback("Finito", F, g, x0,
-                                              kernel_ok)
                     cfg_c = cfg
-                    if self.importance_sampling:
-                        init = lambda: finito_coeff_init(
-                            F, g, x0, gamma, key, cfg_c)._replace(
-                                qcum=qcum, qinv=qinv)
-                    else:
-                        init = lambda: finito_coeff_init(
-                            F, g, x0, gamma, key, cfg_c)
+                    init = lambda: finito_coeff_init(
+                        F, g, x0, gamma, key, cfg_c)._replace(qcum=qcum)
                 else:
                     init = lambda: finito_basic_init(F, g, x0, gamma, key, cfg)
             else:

@@ -8,10 +8,8 @@ the same anchor-diff estimator in a three-point momentum coupling and
 converges in O(√κ) epochs. It is included here because it shares the
 ENTIRE data path of our SVRG: one contiguous-block row read per inner
 step (``grad_sum_diff_block`` fuses the live and anchor gradients over
-the same gathered rows) plus O(n) vector algebra — so on TPU each
-inner step already streams at the row-read bandwidth floor and no
-dedicated Pallas kernel is needed (the three-sequence update is a few
-fused VPU ops next to the 16 MB block read).
+the same gathered rows) plus O(n) vector algebra — the three-sequence
+update is a few elementwise ops next to the block's row read.
 
 Per inner step (Option II, minibatch mean over block B):
 
@@ -51,10 +49,8 @@ class KatyushaCfg(NamedTuple):
     N: int
     batch: int = 1
     m: int = 1          # inner steps per outer iterate (static)
-    block: bool = False  # contiguous-block sampling (TPU fast path)
+    block: bool = False  # contiguous-block sampling (slices, no gather)
     ns: bool = False     # non-strongly-convex τ₁ₛ = 2/(s+4) schedule
-    fused: bool = False  # Pallas K-inner-steps-per-launch kernel
-    fused_precision: str = "highest"  # MXU dots in fused kernels
 
 
 class KatyushaState(NamedTuple):
@@ -68,10 +64,6 @@ class KatyushaState(NamedTuple):
     key: jnp.ndarray
     it: jnp.ndarray
     status: jnp.ndarray
-    # fused mode only: anchor coefficient slab c(x̃) in (8, N/8) layout,
-    # refreshed with av in ONE pass (ops.coeff_apply_all); None
-    # otherwise (leafless pytree node).
-    canch: object = None
 
     @property
     def solution(self):
@@ -83,19 +75,10 @@ def katyusha_init(F, g, x0, Lmax, tau1, tau2, key,
                   cfg: KatyushaCfg) -> KatyushaState:
     """Anchor bootstrap at x0 (one full gradient pass); y = z = x̃ = x0,
     so solution(init) == x0 — matching the SVRG init convention."""
-    if cfg.fused:
-        from ciao_tpu.ops.fused_block import SLAB_ROWS
-
-        c = F.coeff_all(x0)
-        av = F.apply_all(c) / cfg.N
-        canch = c.reshape(SLAB_ROWS, cfg.N // SLAB_ROWS)
-    else:
-        av = F.grad_sum_all(x0) / cfg.N
-        canch = None
+    av = F.grad_sum_all(x0) / cfg.N
     return KatyushaState(
         Lmax=Lmax, tau1=tau1, tau2=tau2, av=av, x_tilde=x0, y=x0, z=x0,
         key=key, it=jnp.ones((), jnp.int32), status=jnp.zeros((), jnp.int32),
-        canch=canch,
     )
 
 
@@ -114,10 +97,9 @@ def _katyusha_schedule(cfg, state):
 
 
 def _katyusha_inner(F, g, cfg, xt, av, tau1, tau2, alpha, beta, sub,
-                    y, z, ysum, steps, k0=0):
-    """``steps`` stepwise inner iterations from inner index ``k0`` —
-    the (sub, k) stream mirrored exactly (and vectorized) by the fused
-    driver's ``_gen_block_starts`` (sampling parity)."""
+                    y, z, ysum, steps):
+    """``steps`` inner iterations on the stateless (sub, k) block
+    stream."""
     from ciao_tpu.solvers.saga import _block_start
 
     N, B = cfg.N, cfg.batch
@@ -138,62 +120,9 @@ def _katyusha_inner(F, g, cfg, xt, av, tau1, tau2, alpha, beta, sub,
         return (y, z, ysum + y), None
 
     (y, z, ysum), _ = jax.lax.scan(
-        inner, (y, z, ysum),
-        k0 + jnp.arange(steps, dtype=jnp.int32),
+        inner, (y, z, ysum), jnp.arange(steps, dtype=jnp.int32)
     )
     return y, z, ysum
-
-
-def _katyusha_step_fused(F, g, cfg: KatyushaCfg, state: KatyushaState,
-                         tau1, tau2, alpha, beta, sub) -> KatyushaState:
-    """Fused outer iterate: the m inner steps run as K-steps-per-launch
-    Pallas kernels (ops.katyusha_coeff_multistep — y/z/ysum carried in
-    VMEM, eval point x formed in-kernel, anchor gradient = the carried
-    coefficient slab ``state.canch``), then the anchor refresh computes
-    c(x̃⁺) AND the full gradient sum in one pass (ops.coeff_apply_all)
-    — each inner block costs ONE row pass vs the XLA path's ~2-3
-    (measured 7.50 → ~3.7 ms/outer at the PERF.md config)."""
-    from ciao_tpu.ops.fused_block import (
-        SLAB_ROWS, _pick_tile, coeff_apply_all, katyusha_inner_chunked,
-        oracle_scalar_consts, rows_scale_row, rows_scale_slab,
-    )
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    B, m = cfg.batch, cfg.m
-    rows, offs = F.coeff_rows_data()
-    av, xt = state.av, state.x_tilde
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    f32 = lambda v: jnp.asarray(v, jnp.float32)
-    scalars = jnp.stack([
-        scale, f32(alpha), f32(beta), f32(alpha * lam), f32(beta * lam),
-        f32(1.0 / B), mode, f32(tau1), f32(tau2), aux,
-    ])[None, :]
-    slab = (SLAB_ROWS, cfg.N // SLAB_ROWS)
-    y2, z2, ys2, done = katyusha_inner_chunked(
-        rows, offs.reshape(slab), state.canch, xt[None, :],
-        state.y[None, :], state.z[None, :],
-        jnp.zeros_like(state.y)[None, :], av[None, :], scalars, B, m,
-        lambda k0, K: _gen_block_starts(sub, k0, cfg, K),
-        precision=cfg.fused_precision, rs8=rows_scale_slab(F),
-    )
-    y, z, ysum = y2[0], z2[0], ys2[0]
-    if done < m:
-        y, z, ysum = _katyusha_inner(
-            F, g, cfg, xt, av, tau1, tau2, alpha, beta, sub,
-            y, z, ysum, m - done, k0=done,
-        )
-    x_tilde = ysum / jnp.asarray(m, ysum.dtype)
-    tile = _pick_tile(B, cfg.N, x_tilde.size, esize=rows.dtype.itemsize)
-    c1, gsum = coeff_apply_all(
-        rows, offs[None, :], x_tilde[None, :],
-        jnp.stack([scale, mode, aux])[None, :], tile,
-        precision=cfg.fused_precision, rs1=rows_scale_row(F),
-    )
-    return state._replace(
-        tau1=tau1.astype(state.tau1.dtype) if cfg.ns else state.tau1,
-        av=gsum[0] / cfg.N, x_tilde=x_tilde, y=y, z=z, it=state.it + 1,
-        canch=c1.reshape(slab),
-    )
 
 
 def _katyusha_step(F, g, cfg: KatyushaCfg, state: KatyushaState):
@@ -203,11 +132,6 @@ def _katyusha_step(F, g, cfg: KatyushaCfg, state: KatyushaState):
     N, m = cfg.N, cfg.m
     tau1, tau2, alpha, beta = _katyusha_schedule(cfg, state)
     key, sub = jax.random.split(state.key)
-    if cfg.fused:
-        return _katyusha_step_fused(
-            F, g, cfg, state._replace(key=key), tau1, tau2, alpha, beta,
-            sub,
-        )
     y, z, ysum = _katyusha_inner(
         F, g, cfg, state.x_tilde, state.av, tau1, tau2, alpha, beta, sub,
         state.y, state.z, jnp.zeros_like(state.y), m,
@@ -253,13 +177,11 @@ class Katyusha:
     tau1: Optional[float] = None
     tau2: float = 0.5
     sigma: Optional[float] = None
-    block_sampling: bool = False  # contiguous inner blocks (TPU fast path)
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc MXU dots
+    block_sampling: bool = False  # contiguous inner blocks (slices)
     seed: int = 0
 
     def __post_init__(self):
         assert self.maxit > 0 and self.freq > 0 and self.batch >= 1
-        assert self.fused_precision in ("highest", "default")
         assert 0.0 < self.tau2 < 1.0
         if self.tau1 is not None:
             assert 0.0 < self.tau1 <= 1.0 - self.tau2
@@ -296,13 +218,8 @@ class Katyusha:
         else:
             ns = True
             tau1 = jnp.asarray(0.5, rdt)  # epoch 0 value of 2/(s+4)
-        from ciao_tpu.solvers.base import fused_inner_gate
-
-        fused = fused_inner_gate(self.block_sampling, self.batch, x0, F,
-                                 g, N, who="Katyusha")
         cfg = KatyushaCfg(N=N, batch=self.batch, m=m,
-                          block=self.block_sampling, ns=ns, fused=fused,
-                          fused_precision=self.fused_precision)
+                          block=self.block_sampling, ns=ns)
         key = jax.random.PRNGKey(self.seed)
         tau2 = jnp.asarray(self.tau2, rdt)
         init = lambda: katyusha_init(F, g, x0, Lmax, tau1, tau2, key, cfg)

@@ -15,17 +15,17 @@ pass per 1/p steps):
 
 Same O((N + κ)log 1/ε) rate as SVRG with p = 1/N, but a single-loop
 iteration structure: no inner-length tuning, no iterate-averaging
-reset, and uniform per-step cost — which on TPU means ONE jitted step
+reset, and uniform per-step cost — which means ONE jitted step
 fn (the refresh is a ``lax.cond`` full-pass branch) instead of SVRG's
 nested inner scan, and a constant-shape state that checkpoints and
 shards like SAGA's.
 
-TPU mapping: the per-step work is one contiguous-block row read
-(``grad_sum_diff_block`` fuses the live and anchor gradients over the
-same streamed rows — the SVRG/Katyusha/SARAH data path) + O(n) vector
+Data path: the per-step work is one contiguous-block row read
+(``grad_sum_diff_block`` takes the live and anchor gradients over the
+same rows — the SVRG/Katyusha/SARAH data path) + O(n) vector
 algebra; the coin and the block draw are stateless (key, it) streams so
 a ``lax.scan`` over steps stays a single dispatch. The refresh branch
-is one fused full-pass reduction (``grad_sum_all``), paid with
+is one full-pass reduction (``grad_sum_all``), paid with
 probability p per step.
 
 API matches the reference-style facades: ``LSVRG(...)(x0, F=F, g=g,
@@ -65,9 +65,7 @@ def _coin(key, it, p):
 class LSVRGCfg(NamedTuple):
     N: int
     batch: int = 1
-    block: bool = False  # uniform CONTIGUOUS block per step (TPU fast path)
-    fused: bool = False  # Pallas coin-aware K-steps-per-launch kernel
-    fused_precision: str = "highest"  # MXU dots in fused kernels
+    block: bool = False  # uniform CONTIGUOUS block per step (slices)
 
 
 class LSVRGState(NamedTuple):
@@ -79,24 +77,10 @@ class LSVRGState(NamedTuple):
     key: jnp.ndarray
     it: jnp.ndarray
     status: jnp.ndarray
-    # fused mode only: anchor coefficient slab c(z) in (8, N/8) layout,
-    # refreshed with av on every coin flip (ops.coeff_apply_all); None
-    # otherwise (leafless pytree node).
-    canch: object = None
 
     @property
     def solution(self):    # the current iterate — no outer average
         return self.w
-
-
-def _coeff_anchor(F, x, N):
-    """(canch slab, av) — the anchor's coefficient slab and gradient
-    mean in ONE logical refresh (fused mode)."""
-    from ciao_tpu.ops.fused_block import SLAB_ROWS
-
-    c = F.coeff_all(x)
-    av = F.apply_all(c) / N
-    return c.reshape(SLAB_ROWS, N // SLAB_ROWS), av
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -104,15 +88,10 @@ def lsvrg_init(F, g, x0, gamma, p, key, cfg: LSVRGCfg) -> LSVRGState:
     """Anchor bootstrap at x0 (one full-gradient pass); w = z = x0, so
     solution(init) == x0 — init is iteration #1, the framework-wide
     convention."""
-    if cfg.fused:
-        canch, av = _coeff_anchor(F, x0, cfg.N)
-    else:
-        av = F.grad_sum_all(x0) / cfg.N
-        canch = None
+    av = F.grad_sum_all(x0) / cfg.N
     return LSVRGState(
         gamma=gamma, p=p, av=av, z=x0, w=x0, key=key,
         it=jnp.ones((), jnp.int32), status=jnp.zeros((), jnp.int32),
-        canch=canch,
     )
 
 
@@ -136,20 +115,6 @@ def _lsvrg_step(F, g, cfg: LSVRGCfg, state: LSVRGState) -> LSVRGState:
     # step w − γ[∇f_i(w) − ∇f_i(z) + μ] (the SVRG inner form)
     w_new = g.prox_only(w + gamma * (d / B - av), gamma)
     flip = _coin(state.key, state.it, state.p)
-    if cfg.fused:
-        # the anchor's coefficient slab must stay in sync with av for
-        # the fused runs (a stepwise step can be interleaved with them
-        # via the iterator)
-        def _refresh():
-            canch, av = _coeff_anchor(F, w, N)
-            return w, av, canch
-
-        z_new, av_new, canch_new = jax.lax.cond(
-            flip, _refresh, lambda: (state.z, state.av, state.canch),
-        )
-        return state._replace(
-            av=av_new, z=z_new, w=w_new, it=state.it + 1, canch=canch_new
-        )
     z_new, av_new = jax.lax.cond(
         flip,
         lambda: (w, F.grad_sum_all(w) / N),
@@ -160,108 +125,8 @@ def _lsvrg_step(F, g, cfg: LSVRGCfg, state: LSVRGState) -> LSVRGState:
     )
 
 
-_LOOPLESS_LAUNCH = 32  # K steps per launch: balances the ~0.1 ms
-# per-launch fixed cost (favors large K) against the clamped-DMA waste
-# past a mid-launch coin flip, ~p·K/2 block re-reads per flip (favors
-# small K); at p = B/N = 1/64 the optimum is K ≈ 2·√(0.1/0.028·1/p)
-# ≈ 30 and the total overhead ≈ 0.01 ms/step (measured in PERF.md).
-
-
-def _coin_window(key, it, p, done, steps, cfg, K):
-    """One launch window's schedule for the coin-aware fused drivers:
-    the (clamped) K block starts, the in-kernel stop index, whether an
-    anchor flip fires inside the window, and the number of steps
-    actually consumed. f0 == K is the NO-FLIP sentinel — it must not
-    read as a flip position when more than K steps remain (a past bug
-    skipped a step and refreshed spuriously; pinned by the p=0 fused
-    equality cases)."""
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    its = it + jnp.arange(K, dtype=jnp.int32)
-    starts = _gen_block_starts(key, it, cfg, K)
-    coins = jax.vmap(lambda t: _coin(key, t, p))(its)
-    s_rem = steps - done
-    f0 = jnp.where(jnp.any(coins), jnp.argmax(coins),
-                   jnp.asarray(K, jnp.int32))
-    flip = (f0 < K) & (f0 < s_rem)
-    nproc = jnp.where(flip, f0 + 1, jnp.minimum(K, s_rem)).astype(jnp.int32)
-    stop = nproc - 1
-    starts = jnp.where(jnp.arange(K, dtype=jnp.int32) <= stop,
-                       starts, starts[stop])
-    return starts, stop, flip, nproc
-
-
-def _lsvrg_run_fused(F, g, state, cfg: LSVRGCfg, steps: int):
-    """Coin-aware fused driver: a ``lax.while_loop`` over kernel
-    launches of up to K steps each. The Bernoulli coins are stateless
-    (key, it) draws, so each launch's first-flip position is computed
-    BEFORE launching — the schedule is clamped there, the kernel masks
-    the tail, and the anchor refresh (one ``coeff_apply_all`` pass at
-    the flip step's PRE-update iterate) runs between launches under
-    ``lax.cond``. Trajectory ≡ the stepwise path on the same streams."""
-    from ciao_tpu.ops.fused_block import (
-        SLAB_ROWS, _pick_tile, coeff_apply_all, lsvrg_coeff_multistep,
-        oracle_scalar_consts, rows_scale_row, rows_scale_slab,
-    )
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    B, N, K = cfg.batch, cfg.N, _LOOPLESS_LAUNCH
-    rows, offs = F.coeff_rows_data()
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    gamma = state.gamma
-    scalars = jnp.stack([
-        scale, jnp.asarray(gamma, jnp.float32),
-        jnp.asarray(gamma * lam, jnp.float32),
-        jnp.asarray(1.0 / B, jnp.float32), mode, aux,
-    ])[None, :]
-    slab = (SLAB_ROWS, N // SLAB_ROWS)
-    b8 = offs.reshape(slab)
-    rs8 = rows_scale_slab(F)
-    rs1 = rows_scale_row(F)
-    tile = _pick_tile(B, N, state.w.size, esize=rows.dtype.itemsize)
-    key, p = state.key, state.p
-
-    def refresh(wpre2):
-        c1, gsum = coeff_apply_all(
-            rows, offs[None, :], wpre2, jnp.stack([scale, mode, aux])[None, :],
-            tile, precision=cfg.fused_precision, rs1=rs1,
-        )
-        return c1.reshape(slab), gsum[0] / N
-
-    def cond_fn(carry):
-        return carry[-1] < steps
-
-    def body_fn(carry):
-        w2, z, av2, canch, it, done = carry
-        starts, stop, flip, nproc = _coin_window(
-            key, it, p, done, steps, cfg, K
-        )
-        w2n, wpre2 = lsvrg_coeff_multistep(
-            rows, b8, canch, starts, stop, w2, av2, scalars, B,
-            precision=cfg.fused_precision, rs8=rs8,
-        )
-
-        def _do_refresh():
-            canch_n, av = refresh(wpre2)
-            return canch_n, av[None, :], wpre2[0]
-
-        canch_n, av2n, z_n = jax.lax.cond(
-            flip, _do_refresh, lambda: (canch, av2, z)
-        )
-        return (w2n, z_n, av2n, canch_n, it + nproc, done + nproc)
-
-    w2, z, av2, canch, it, _ = jax.lax.while_loop(
-        cond_fn, body_fn,
-        (state.w[None, :], state.z, state.av[None, :], state.canch,
-         state.it, jnp.zeros((), jnp.int32)),
-    )
-    return state._replace(w=w2[0], z=z, av=av2[0], canch=canch, it=it)
-
-
 @partial(jax.jit, static_argnames=("cfg", "steps"))
 def lsvrg_run(F, g, state, cfg: LSVRGCfg, steps: int):
-    if cfg.fused and steps >= 8:
-        return _lsvrg_run_fused(F, g, state, cfg, steps)
 
     def body(s, _):
         with jax.named_scope("lsvrg_step"):
@@ -280,22 +145,8 @@ def lsvrg_rebase(F, g, state, cfg: LSVRGCfg):
     """Exact anchor-gradient recompute at the CURRENT anchor point —
     required after an oracle row-storage swap (the carried μ keeps the
     old operator's gradient until the next coin fires, which at small p
-    is arbitrarily far away). Fused mode recomputes the coefficient
-    slab under THIS oracle too."""
-    if cfg.fused:
-        canch, av = _coeff_anchor(F, state.z, cfg.N)
-        return state._replace(av=av, canch=canch)
+    is arbitrarily far away)."""
     return state._replace(av=F.grad_sum_all(state.z) / cfg.N)
-
-
-def _loopless_fused_gate(self, x0, F, g, N) -> bool:
-    """LSVRG/LKatyusha fused-kernel gate — the shared SVRG-family
-    policy (solvers.base.fused_inner_gate, with its one-time TPU
-    fallback warning)."""
-    from ciao_tpu.solvers.base import fused_inner_gate
-
-    return fused_inner_gate(self.block_sampling, self.batch, x0, F, g,
-                            N, who=type(self).__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,14 +165,12 @@ class LSVRG:
     freq: int = 1000
     p: Optional[float] = None
     batch: int = 1
-    block_sampling: bool = False  # contiguous blocks (TPU fast path)
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc MXU dots
+    block_sampling: bool = False  # contiguous blocks (slices, no gather)
     seed: int = 0
 
     def __post_init__(self):
         assert self.gamma is None or self.gamma > 0
         assert self.maxit > 0 and self.freq > 0 and self.batch >= 1
-        assert self.fused_precision in ("highest", "default")
         assert self.p is None or 0.0 <= self.p <= 1.0
 
     def _setup(self, x0, F, g, L, N):
@@ -345,9 +194,7 @@ class LSVRG:
         p = self.batch / N if self.p is None else self.p
         if self.block_sampling and N % self.batch != 0:
             raise ValueError("LSVRG block_sampling needs N divisible by batch")
-        cfg = LSVRGCfg(N=N, batch=self.batch, block=self.block_sampling,
-                       fused=_loopless_fused_gate(self, x0, F, g, N),
-                       fused_precision=self.fused_precision)
+        cfg = LSVRGCfg(N=N, batch=self.batch, block=self.block_sampling)
         key = jax.random.PRNGKey(self.seed)
         p = jnp.asarray(p, jnp.float32)
         init = lambda: lsvrg_init(F, g, x0, gamma, p, key, cfg)
@@ -384,8 +231,6 @@ class LKatyushaCfg(NamedTuple):
     N: int
     batch: int = 1
     block: bool = False
-    fused: bool = False  # Pallas coin-aware K-steps-per-launch kernel
-    fused_precision: str = "highest"  # MXU dots in fused kernels
 
 
 class LKatyushaState(NamedTuple):
@@ -401,9 +246,6 @@ class LKatyushaState(NamedTuple):
     key: jnp.ndarray
     it: jnp.ndarray
     status: jnp.ndarray
-    # fused mode only: anchor coefficient slab c(w_anchor) in (8, N/8)
-    # layout, refreshed with av on every coin flip; None otherwise.
-    canch: object = None
 
     @property
     def solution(self):     # the y sequence carries the O(√κ) guarantee
@@ -414,15 +256,11 @@ class LKatyushaState(NamedTuple):
 def lkatyusha_init(F, g, x0, Lmax, sigma, theta1, theta2, p, key,
                    cfg: LKatyushaCfg) -> LKatyushaState:
     """Anchor bootstrap at x0; y = z = w = x0, so solution(init) == x0."""
-    if cfg.fused:
-        canch, av = _coeff_anchor(F, x0, cfg.N)
-    else:
-        av = F.grad_sum_all(x0) / cfg.N
-        canch = None
+    av = F.grad_sum_all(x0) / cfg.N
     return LKatyushaState(
         Lmax=Lmax, sigma=sigma, theta1=theta1, theta2=theta2, p=p, av=av,
         w_anchor=x0, y=x0, z=x0, key=key, it=jnp.ones((), jnp.int32),
-        status=jnp.zeros((), jnp.int32), canch=canch,
+        status=jnp.zeros((), jnp.int32),
     )
 
 
@@ -461,19 +299,6 @@ def _lkatyusha_step(F, g, cfg: LKatyushaCfg,
     z_new = g.prox_only((state.z + (eta * sig) * x - step * gr) / denom, tau)
     y_new = x + th1 * (z_new - state.z)
     flip = _coin(state.key, state.it, state.p)
-    if cfg.fused:
-        def _refresh():
-            canch, av = _coeff_anchor(F, state.y, N)
-            return state.y, av, canch
-
-        w_new, av_new, canch_new = jax.lax.cond(
-            flip, _refresh,
-            lambda: (state.w_anchor, state.av, state.canch),
-        )
-        return state._replace(
-            av=av_new, w_anchor=w_new, y=y_new, z=z_new,
-            it=state.it + 1, canch=canch_new,
-        )
     w_new, av_new = jax.lax.cond(
         flip,
         lambda: (state.y, F.grad_sum_all(state.y) / N),
@@ -484,82 +309,8 @@ def _lkatyusha_step(F, g, cfg: LKatyushaCfg,
     )
 
 
-def _lkatyusha_run_fused(F, g, state, cfg: LKatyushaCfg, steps: int):
-    """Coin-aware fused driver — the L-SVRG structure (see
-    ``_lsvrg_run_fused``) with the accelerated kernel: each launch
-    carries y/z in VMEM against the constant anchor point w and its
-    coefficient slab; the anchor jumps to the flip step's PRE-update y
-    between launches."""
-    from ciao_tpu.ops.fused_block import (
-        SLAB_ROWS, _pick_tile, coeff_apply_all, lkatyusha_coeff_multistep,
-        oracle_scalar_consts, rows_scale_row, rows_scale_slab,
-    )
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    B, N, K = cfg.batch, cfg.N, _LOOPLESS_LAUNCH
-    rows, offs = F.coeff_rows_data()
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    th1, th2, sig = state.theta1, state.theta2, state.sigma
-    eta = th2 / ((1.0 + th2) * th1)
-    step = eta / state.Lmax
-    denom = 1.0 + eta * sig
-    tau = step / denom
-    f32 = lambda v: jnp.asarray(v, jnp.float32)
-    scalars = jnp.stack([
-        scale, f32(step), f32(tau * lam), f32(1.0 / denom),
-        f32(eta * sig), f32(th1), f32(th2), f32(1.0 / B), mode, aux,
-    ])[None, :]
-    slab = (SLAB_ROWS, N // SLAB_ROWS)
-    b8 = offs.reshape(slab)
-    rs8 = rows_scale_slab(F)
-    rs1 = rows_scale_row(F)
-    tile = _pick_tile(B, N, state.y.size, esize=rows.dtype.itemsize)
-    key, p = state.key, state.p
-
-    def refresh(ypre2):
-        c1, gsum = coeff_apply_all(
-            rows, offs[None, :], ypre2, jnp.stack([scale, mode, aux])[None, :],
-            tile, precision=cfg.fused_precision, rs1=rs1,
-        )
-        return c1.reshape(slab), gsum[0] / N
-
-    def cond_fn(carry):
-        return carry[-1] < steps
-
-    def body_fn(carry):
-        y2, z2, wa, av2, canch, it, done = carry
-        starts, stop, flip, nproc = _coin_window(
-            key, it, p, done, steps, cfg, K
-        )
-        y2n, z2n, ypre2 = lkatyusha_coeff_multistep(
-            rows, b8, canch, starts, stop, wa[None, :], y2, z2, av2,
-            scalars, B, precision=cfg.fused_precision, rs8=rs8,
-        )
-
-        def _do_refresh():
-            canch_n, av = refresh(ypre2)
-            return canch_n, av[None, :], ypre2[0]
-
-        canch_n, av2n, wa_n = jax.lax.cond(
-            flip, _do_refresh, lambda: (canch, av2, wa)
-        )
-        return (y2n, z2n, wa_n, av2n, canch_n, it + nproc, done + nproc)
-
-    y2, z2, wa, av2, canch, it, _ = jax.lax.while_loop(
-        cond_fn, body_fn,
-        (state.y[None, :], state.z[None, :], state.w_anchor,
-         state.av[None, :], state.canch, state.it,
-         jnp.zeros((), jnp.int32)),
-    )
-    return state._replace(
-        y=y2[0], z=z2[0], w_anchor=wa, av=av2[0], canch=canch, it=it
-    )
-
-
 @partial(jax.jit, static_argnames=("cfg", "steps"))
 def lkatyusha_run(F, g, state, cfg: LKatyushaCfg, steps: int):
-    if cfg.fused and steps >= 8:
-        return _lkatyusha_run_fused(F, g, state, cfg, steps)
 
     def body(s, _):
         with jax.named_scope("lkatyusha_step"):
@@ -577,9 +328,6 @@ def lkatyusha_step(F, g, state, cfg: LKatyushaCfg):
 def lkatyusha_rebase(F, g, state, cfg: LKatyushaCfg):
     """Exact anchor-gradient recompute at the current anchor point —
     required after an oracle row-storage swap (cf. lsvrg_rebase)."""
-    if cfg.fused:
-        canch, av = _coeff_anchor(F, state.w_anchor, cfg.N)
-        return state._replace(av=av, canch=canch)
     return state._replace(av=F.grad_sum_all(state.w_anchor) / cfg.N)
 
 
@@ -604,12 +352,10 @@ class LKatyusha:
     theta2: float = 0.5
     sigma: Optional[float] = None
     block_sampling: bool = False
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc MXU dots
     seed: int = 0
 
     def __post_init__(self):
         assert self.maxit > 0 and self.freq > 0 and self.batch >= 1
-        assert self.fused_precision in ("highest", "default")
         assert 0.0 < self.theta2 < 1.0
         assert self.p is None or 0.0 <= self.p <= 1.0
         if self.theta1 is not None:
@@ -647,9 +393,7 @@ class LKatyusha:
             raise ValueError(
                 "LKatyusha block_sampling needs N divisible by batch"
             )
-        cfg = LKatyushaCfg(N=N, batch=self.batch, block=self.block_sampling,
-                           fused=_loopless_fused_gate(self, x0, F, g, N),
-                           fused_precision=self.fused_precision)
+        cfg = LKatyushaCfg(N=N, batch=self.batch, block=self.block_sampling)
         key = jax.random.PRNGKey(self.seed)
         p = jnp.asarray(p, jnp.float32)
         theta2 = jnp.asarray(self.theta2, rdt)

@@ -12,7 +12,7 @@ of the single sampled term,
 which tolerates stepsizes up to ~1/μ (vs SAGA's 1/(3L)) and attains an
 accelerated-like rate on strongly-convex finite sums without momentum.
 The reference family has nothing prox-based on the smooth terms; it is
-included here because on TPU it is byte-identical to the SAGA
+included here because its data path is byte-identical to the SAGA
 coefficient step: for scalar-loss rows (least-squares, logistic) the
 per-term prox is again rank-1 — prox_{γf_j}(z) = z − γθ_j·conj(a_j)
 with θ_j from a scalar equation (closed form for least squares,
@@ -21,7 +21,7 @@ step is ONE margin dot + ONE apply dot over the same streamed rows
 (`oracle.pointprox_block`), and the gradient table compresses exactly
 to the (N,) θ coefficients.
 
-Minibatch extension (the sanctioned TPU batching, cf. the reference's
+Minibatch extension (the sanctioned batching, cf. the reference's
 own minibatch TODO at ``SAGA_basic.jl:74``): each sampled row keeps its
 OWN prox point z_j = v + γ·c_j·conj(a_j) around the shared shifted
 iterate v = x − γ·ḡ, and the new iterate is the block mean of the prox
@@ -54,27 +54,15 @@ from ciao_tpu.solvers.base import (
 class PointSAGACfg(NamedTuple):
     N: int
     batch: int = 1
-    block: bool = False  # contiguous-block sampling (TPU fast path)
-    fused: bool = False  # Pallas K-steps-per-launch kernel
-    fused_precision: str = "highest"  # MXU dots in fused kernels
-    # streamed-table fused kernel (any N — the VMEM slab caps ``fused``
-    # at N ≤ 1M): (1, N) coefficient row through clamped aliased
-    # windows, the saga fused_stream machinery
-    fused_stream: bool = False
-    # Lipschitz-proportional block sampling (round 5, VERDICT r4 #6 —
-    # the SAGA systematic-πps schedule shared verbatim). Point-SAGA is a
-    # FIXED-POINT table method: at the optimum every realized map fixes
-    # x* exactly (prox optimality per drawn block), so non-uniform
-    # draws need NO direction reweighting — the schedule only changes
-    # which anchors refresh most often. The stepsize compensates via
-    # the clipped effective smoothness 1/(3·max_j L_j/(d·q̃_j)).
-    # ``istrat``/``iwin`` mirror SAGACfg (the facade always sets
-    # istrat=True here: one schedule for stepwise AND streamed keeps
-    # the streams bit-identical; same-window draws are distinct by
-    # construction, which is also the streamed kernel's hazard gate).
+    block: bool = False  # contiguous-block sampling (slices, no gather)
+    # Lipschitz-proportional block sampling (sampling.systematic_block, the
+    # Finito schedule). Point-SAGA is a FIXED-POINT table method: at the
+    # optimum every realized map fixes x* exactly (prox optimality per
+    # drawn block), so non-uniform draws need NO direction reweighting
+    # — the schedule only changes which anchors refresh most often. The
+    # stepsize compensates via the truncated effective smoothness
+    # 1/(3·max_j L_j/(d·q̃_j)).
     importance: bool = False
-    istrat: bool = True
-    iwin: int = 64
 
 
 class PointSAGAState(NamedTuple):
@@ -85,40 +73,13 @@ class PointSAGAState(NamedTuple):
     key: jnp.ndarray
     it: jnp.ndarray
     status: jnp.ndarray
-    # fused modes only: dequant-corrected row square-norms ‖a_i‖² — the
-    # closed θ-solve's curvature terms, precomputed once (one pass).
-    # Layout follows the kernel: (8, N/8) slab under cfg.fused, (1, N)
-    # row under cfg.fused_stream; None otherwise (leafless pytree node).
-    na8: object = None
     # importance mode only (leafless None otherwise): the π-scale CDF
-    # of the clipped block distribution and the 1/(d·q̃_j) weights —
-    # the latter kept ONLY for draw-stream parity with SAGA's
-    # _block_choice/_gen_importance_draws helpers (Point-SAGA ignores
-    # the weight: fixed-point method, see PointSAGACfg.importance).
+    # of sampling.systematic_schedule
     qcum: object = None
-    qinv: object = None
 
     @property
     def solution(self):
         return self.x
-
-
-def _sqnorms(F, N):
-    """Dequant-corrected row square-norms ‖a_i‖² (int8 rows: Σq²·rs²,
-    matching _pointprox_core's na2 algebra), flat (N,)."""
-    na = F.pointprox_sqnorm_block(0, N)
-    rs = F.coeff_rows_scale() if hasattr(F, "coeff_rows_scale") else None
-    if rs is not None:
-        na = na * (rs * rs)
-    return na.astype(jnp.float32)
-
-
-def _sqnorm_slab(F, N):
-    """The (8, N/8) slab layout of :func:`_sqnorms` (resident-slab
-    fused kernel)."""
-    from ciao_tpu.ops.fused_block import SLAB_ROWS
-
-    return _sqnorms(F, N).reshape(SLAB_ROWS, N // SLAB_ROWS)
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -128,16 +89,9 @@ def point_saga_init(F, g, x0, gamma, key, cfg: PointSAGACfg) -> PointSAGAState:
     solution(init) == x0."""
     c = F.coeff_all(x0)
     av = F.apply_all(c) / cfg.N
-    if cfg.fused:
-        na8 = _sqnorm_slab(F, cfg.N)
-    elif cfg.fused_stream:
-        na8 = _sqnorms(F, cfg.N)[None, :]   # (1, N) streamed row
-    else:
-        na8 = None
     return PointSAGAState(
         gamma=gamma, c=c, av=av, x=x0, key=key,
         it=jnp.ones((), jnp.int32), status=jnp.zeros((), jnp.int32),
-        na8=na8,
     )
 
 
@@ -151,9 +105,9 @@ def _point_saga_step(F, g, cfg: PointSAGACfg,
     if cfg.block:
         key = state.key
         if cfg.importance:
-            from ciao_tpu.solvers.saga import _block_choice
+            from ciao_tpu.sampling import systematic_block
 
-            start, _ = _block_choice(cfg, state)  # weight unused (see cfg)
+            start = systematic_block(key, state.it, state.qcum, N // B) * B
         else:
             start = _block_start(key, state.it, N, B)
         c_B = jax.lax.dynamic_slice_in_dim(state.c, start, B)
@@ -173,150 +127,7 @@ def _point_saga_step(F, g, cfg: PointSAGACfg,
 
 
 @partial(jax.jit, static_argnames=("cfg", "steps"))
-def _point_saga_run_fused(F, g, state, cfg: PointSAGACfg, steps: int):
-    """Fused multi-step driver: K block steps per Pallas launch
-    (ops.point_saga_multistep — coefficient slab and iterate carried in
-    VMEM, θ-solve and table-mean delta in-kernel), the stepwise path's
-    sampling stream reproduced by the vectorized ``_gen_block_starts``.
-    Measured 0.063 → ~0.031 ms/step at the PERF.md config (one row pass
-    per step vs the XLA path's ~2)."""
-    from ciao_tpu.ops.fused_block import (
-        SLAB_ROWS, point_saga_multistep, rows_scale_slab,
-    )
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    B = cfg.batch
-    K = min(128, steps)
-    L = steps // K
-    rem = steps - L * K
-    rows, offs = F.coeff_rows_data()
-    scalars = jnp.stack([
-        jnp.asarray(getattr(F, "scale", 1.0), jnp.float32),
-        jnp.asarray(state.gamma, jnp.float32),
-        jnp.asarray(1.0 / B, jnp.float32),
-        jnp.asarray(1.0 / cfg.N, jnp.float32),
-        jnp.asarray(float(F.coeff_mode), jnp.float32),
-        jnp.asarray(getattr(F, "delta", 0.0), jnp.float32),  # Huber δ
-    ])[None, :]
-    slab = (SLAB_ROWS, cfg.N // SLAB_ROWS)
-    b8 = offs.reshape(slab)
-    rs8 = rows_scale_slab(F)
-
-    def body(carry, it0):
-        c8, x2, av2 = carry
-        if cfg.importance:
-            from ciao_tpu.solvers.saga import _gen_importance_draws
-
-            starts, _ = _gen_importance_draws(
-                state.key, it0, cfg, state.qcum, state.qinv, K)
-        else:
-            starts = _gen_block_starts(state.key, it0, cfg, K)
-        c8, x2, av2 = point_saga_multistep(
-            rows, b8, state.na8, c8, starts, x2, av2, scalars, B,
-            mode=int(F.coeff_mode), precision=cfg.fused_precision,
-            rs8=rs8,
-        )
-        return (c8, x2, av2), None
-
-    its0 = state.it + K * jnp.arange(L, dtype=jnp.int32)
-    (c8, x2, av2), _ = jax.lax.scan(
-        body,
-        (state.c.reshape(slab), state.x[None, :], state.av[None, :]),
-        its0,
-    )
-    state = state._replace(
-        c=c8.reshape(cfg.N), x=x2[0], av=av2[0],
-        it=state.it + jnp.asarray(L * K, jnp.int32),
-    )
-    for _ in range(rem):
-        state = _point_saga_step(F, g, cfg, state)
-    return state
-
-
-def _point_saga_run_fused_streamed(F, g, state, cfg: PointSAGACfg,
-                                   steps: int):
-    """Any-N fused driver: the (1, N) coefficient row streams through
-    clamped launches (ops.point_saga_multistep_streamed) — the SAGA
-    fused_stream machinery with the θ-solve in-kernel."""
-    from ciao_tpu.ops.fused_block import (
-        point_saga_multistep_streamed, rows_scale_row,
-    )
-    from ciao_tpu.sampling import first_duplicate
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    from ciao_tpu.solvers.saga import run_clamped_stream, stream_launch_K
-
-    B, N = cfg.batch, cfg.N
-    d = N // B
-    K = min(cfg.iwin, d) if cfg.importance else stream_launch_K(d)
-    rows, offs = F.coeff_rows_data()
-    b1 = offs[None, :]
-    rs1 = rows_scale_row(F)
-    scalars = jnp.stack([
-        jnp.asarray(getattr(F, "scale", 1.0), jnp.float32),
-        jnp.asarray(state.gamma, jnp.float32),
-        jnp.asarray(1.0 / B, jnp.float32),
-        jnp.asarray(1.0 / N, jnp.float32),
-        jnp.asarray(float(F.coeff_mode), jnp.float32),
-        jnp.asarray(getattr(F, "delta", 0.0), jnp.float32),  # Huber δ
-    ])[None, :]
-    interp = jax.default_backend() != "tpu"
-
-    def launch(carry):
-        c1, x2, av2, it = carry
-        if cfg.importance:
-            from ciao_tpu.solvers.saga import _gen_importance_draws
-
-            starts, _ = _gen_importance_draws(
-                state.key, it, cfg, state.qcum, state.qinv, K)
-        else:
-            starts = _gen_block_starts(state.key, it, cfg, K)
-        fcl = first_duplicate(starts // B)
-        c1, x2, av2 = point_saga_multistep_streamed(
-            rows, b1, state.na8, c1, starts, x2, av2, scalars, B,
-            mode=int(F.coeff_mode), precision=cfg.fused_precision,
-            rs1=rs1, f=fcl, interpret=interp,
-        )
-        return (c1, x2, av2, it + fcl)
-
-    if cfg.importance:
-        # stratified schedule: launches must be WINDOW-ALIGNED (the
-        # SAGA fused_stream pattern verbatim — a launch spanning two
-        # windows re-draws hot near-1/K-mass blocks in both halves and
-        # clamps early). Launch iff it % K == 0, else one stepwise
-        # step; one jitted while_loop.
-        target = state.it + jnp.asarray(steps, jnp.int32)
-
-        def do_launch(st):
-            c1, x2, av2, it = launch(
-                (st.c[None, :], st.x[None, :], st.av[None, :], st.it)
-            )
-            return st._replace(c=c1[0], x=x2[0], av=av2[0], it=it)
-
-        def body(st):
-            aligned = (st.it % K == 0) & (st.it + K <= target)
-            return jax.lax.cond(
-                aligned, do_launch,
-                lambda s: _point_saga_step(F, g, cfg, s), st,
-            )
-
-        return jax.lax.while_loop(lambda st: st.it < target, body, state)
-
-    return run_clamped_stream(
-        state, steps, K,
-        (state.c[None, :], state.x[None, :], state.av[None, :]), launch,
-        lambda st, c: st._replace(c=c[0][0], x=c[1][0], av=c[2][0],
-                                  it=c[3]),
-        lambda st: _point_saga_step(F, g, cfg, st),
-    )
-
-
-@partial(jax.jit, static_argnames=("cfg", "steps"))
 def point_saga_run(F, g, state, cfg: PointSAGACfg, steps: int):
-    if cfg.fused and steps >= 8:
-        return _point_saga_run_fused(F, g, state, cfg, steps)
-    if cfg.fused_stream and steps >= 8:
-        return _point_saga_run_fused_streamed(F, g, state, cfg, steps)
 
     def body(s, _):
         with jax.named_scope("point_saga_step"):
@@ -334,16 +145,8 @@ def point_saga_step(F, g, state, cfg: PointSAGACfg):
 def point_saga_rebase(F, g, state, cfg: PointSAGACfg):
     """Exact table-mean recompute ḡ = (1/N)Σ c_i·conj(a_i) — REQUIRED
     after an oracle storage swap (the delta-maintained ḡ keeps the old
-    operator's bias forever otherwise; cf. solvers.saga.saga_rebase).
-    The fused path's row square-norm slab is storage-dependent too —
-    recomputed under THIS oracle."""
-    if cfg.fused:
-        na8 = _sqnorm_slab(F, cfg.N)
-    elif cfg.fused_stream:
-        na8 = _sqnorms(F, cfg.N)[None, :]
-    else:
-        na8 = state.na8
-    return state._replace(av=F.apply_all(state.c) / cfg.N, na8=na8)
+    operator's bias forever otherwise; cf. solvers.saga.saga_rebase)."""
+    return state._replace(av=F.apply_all(state.c) / cfg.N)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,19 +164,16 @@ class PointSAGA:
     freq: int = 1000
     batch: int = 1
     block_sampling: bool = False
-    # Lipschitz-proportional block draws via the SAGA systematic-πps
-    # clipped schedule (round 5; needs block_sampling + L). No
-    # direction reweighting — Point-SAGA is a fixed-point table method
-    # (PointSAGACfg.importance); γ defaults to the clipped effective
-    # smoothness 1/(3·max_j L_j/(d·q̃_j)).
+    # Lipschitz-proportional block draws (sampling.systematic_block; needs
+    # block_sampling + L). No direction reweighting — Point-SAGA is a
+    # fixed-point table method (PointSAGACfg.importance); γ defaults to
+    # the truncated effective smoothness 1/(3·max_j L_j/(d·q̃_j)).
     importance_sampling: bool = False
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc MXU dots
     seed: int = 0
 
     def __post_init__(self):
         assert self.gamma is None or self.gamma > 0
         assert self.maxit > 0 and self.freq > 0 and self.batch >= 1
-        assert self.fused_precision in ("highest", "default")
 
     def _setup(self, x0, F, g, L, N):
         x0 = jnp.asarray(x0)
@@ -399,14 +199,9 @@ class PointSAGA:
             raise ValueError(
                 "PointSAGA block_sampling needs N divisible by batch"
             )
-        qcum = qinv = None
-        iwin = 64
+        qcum = None
         L_eff64 = None
         if self.importance_sampling:
-            # the SAGA facade's schedule construction verbatim (f64 on
-            # host — an f32 cumsum drift would skew the realized draws),
-            # ALWAYS clipped+systematic here: one schedule serves the
-            # stepwise, slab-fused and streamed paths identically
             if not self.block_sampling:
                 raise ValueError(
                     "importance_sampling needs block_sampling=True")
@@ -415,22 +210,10 @@ class PointSAGA:
             if jnp.iscomplexobj(x0):
                 raise ValueError(
                     "PointSAGA importance_sampling: real dtypes only")
-            from ciao_tpu.sampling import clip_block_distribution
+            from ciao_tpu.sampling import systematic_schedule
 
-            Lb64 = np.asarray(jax.device_get(jnp.asarray(L)), np.float64)
-            if Lb64.ndim == 0:
-                Lb64 = np.full((N,), Lb64)
-            d_imp = N // self.batch
-            Lblk64 = np.max(Lb64.reshape(d_imp, self.batch), axis=1)
-            q64 = Lblk64 / np.sum(Lblk64)
-            iwin = min(64, d_imp)
-            q64, _ = clip_block_distribution(q64, iwin)
-            L_eff64 = float(np.max(Lblk64 / (d_imp * q64)))
-            qcum64 = np.cumsum(iwin * q64)
-            qcum64 *= iwin / qcum64[-1]
-            qcum64[-1] = iwin
-            qcum = jnp.asarray(qcum64, rdt)
-            qinv = jnp.asarray(1.0 / (d_imp * q64), rdt)
+            qcum, q64, Lblk64 = systematic_schedule(L, N, self.batch, rdt)
+            L_eff64 = float(np.max(Lblk64 / ((N // self.batch) * q64)))
         if self.gamma is not None:
             gamma = jnp.asarray(self.gamma, rdt)
         else:
@@ -443,63 +226,11 @@ class PointSAGA:
                 gamma = jnp.asarray(1.0 / (3.0 * L_eff64), rdt)
             else:
                 gamma = 1.0 / (3.0 * jnp.max(jnp.asarray(L, rdt)))
-        fused = False
-        fused_stream = False
-        if (
-            self.block_sampling
-            and self.batch > 1
-            and x0.dtype == jnp.float32
-        ):
-            from ciao_tpu.ops import coeff_multistep_available
-            from ciao_tpu.ops.fused_block import (
-                MODE_HUBER, MODE_LOGISTIC, MODE_LSQ, MODE_POISSON,
-                MODE_SQHINGE,
-            )
-
-            # the in-kernel θ-solve: closed forms for least-squares,
-            # Huber (one clip — round 3) and squared hinge (one
-            # activity test — round 4), 20-step Newton for logistic
-            # and Poisson rows
-            kernel_ok = (
-                hasattr(F, "coeff_rows_data")
-                and getattr(F, "supports_coeff", False)
-                and getattr(F, "coeff_mode", None) in (MODE_LSQ,
-                                                       MODE_LOGISTIC,
-                                                       MODE_HUBER,
-                                                       MODE_POISSON,
-                                                       MODE_SQHINGE)
-            )
-            fused = kernel_ok and coeff_multistep_available(
-                N, x0.size, self.batch, x0.dtype
-            )
-            # beyond the VMEM slab cap: the streamed-table kernel
-            from ciao_tpu.ops.fused_block import (
-                coeff_multistep_streamed_available,
-            )
-
-            fused_stream = (
-                kernel_ok and not fused
-                and coeff_multistep_streamed_available(
-                    N, x0.size, self.batch, x0.dtype
-                )
-            )
-        if (self.block_sampling and self.batch > 1
-                and not (fused or fused_stream)):
-            from ciao_tpu.solvers.base import warn_fused_gate_fallback
-
-            warn_fused_gate_fallback("PointSAGA", F, g, x0)
         cfg = PointSAGACfg(N=N, batch=self.batch, block=self.block_sampling,
-                           fused=fused, fused_stream=fused_stream,
-                           fused_precision=self.fused_precision,
-                           importance=self.importance_sampling,
-                           istrat=True, iwin=iwin)
+                           importance=self.importance_sampling)
         key = jax.random.PRNGKey(self.seed)
-        if self.importance_sampling:
-            init = lambda: point_saga_init(F, g, x0, gamma, key,
-                                           cfg)._replace(qcum=qcum,
-                                                         qinv=qinv)
-        else:
-            init = lambda: point_saga_init(F, g, x0, gamma, key, cfg)
+        init = lambda: point_saga_init(F, g, x0, gamma, key,
+                                       cfg)._replace(qcum=qcum)
         return x0, F, g, cfg, init
 
     def __call__(self, x0, F=None, g=None, L=None, N=None, observe=None):

@@ -1,37 +1,33 @@
 """High-accuracy FISTA polish: compensated chunked gradients.
 
-The deep-target measurement (bench.py ``deep_target_10m``, BASELINE.md)
-established that every f32 solver floors at rel ~4e-5 on the 10M×100
-planted lasso — NOT because the iterate needs more than f32 (at
-gap = 1e-6·f* the distance to the optimum is ~1e-3·‖x‖, three orders
-above f32's resolution of x) but because the full-gradient REDUCTION
-over 10.5M rows accumulates f32 rounding ~√N·eps relative — the solver
-stalls when the true gradient sinks below that noise. TPU f64 is no
-fix: XLA emulates it (double-double) at ~50× the cost and the emulated
-matmul materializes multi-copy temporaries that OOM HBM at this scale
-(measured: a 2M×128 f64 matvec program wanted 23 GB).
+Every f32 solver floors at rel ~4e-5 on the 10M×100 planted lasso —
+NOT because the iterate needs more than f32 (at gap = 1e-6·f* the
+distance to the optimum is ~1e-3·‖x‖, three orders above f32's
+resolution of x) but because the full-gradient REDUCTION over 10.5M
+rows accumulates f32 rounding ~√N·eps relative — the solver stalls when
+the true gradient sinks below that noise. f64 rows would double the
+bytes of a bandwidth-bound pass to fix a reduction error.
 
-The TPU-native fix costs almost nothing: stream the rows in f32 (full
-MXU/HBM speed, ``precision=HIGHEST`` so the multiplies are true f32), but
-accumulate the per-chunk partial gradients with a COMPENSATED (two-sum
-/ Kahan) carry. Within a chunk of C rows the f32 dot rounds at ~√C·eps;
-across the N/C chunks the compensation is exact to O(eps²). C = 32k
-cuts the accumulation noise ~18× vs the monolithic pass — enough to
-push the composite-gradient floor 2-3 orders below rel 1e-6 — while
-the chunk loop's fixed cost stays invisible next to the stream.
+The fix costs almost nothing: stream the rows in f32
+(``precision=HIGHEST`` so the multiplies are true f32), but accumulate
+the per-chunk partial gradients with a COMPENSATED (two-sum / Kahan)
+carry. Within a chunk of C rows the f32 dot rounds at ~√C·eps; across
+the N/C chunks the compensation is exact to O(eps²). C = 32k cuts the
+accumulation noise ~18× vs the monolithic pass — enough to push the
+composite-gradient floor 2-3 orders below rel 1e-6 — while the chunk
+loop's fixed cost stays small next to the stream.
 
 ``fista_polish`` wraps that gradient in a monotone FISTA loop: at the
 10M scale the planted operator's Hessian has κ = (1+√(n/N))⁴ ≈ 1.03,
-so once a stochastic solver has delivered the f32 floor (streamed SAGA
-does it in ~0.2 s), a handful of polish epochs — each one 2-pass read
-of the rows — closes rel 4e-5 → 1e-6. Used by bench.py's deep-target
-plan; reusable for any dense-rows coefficient oracle (the margin →
-``coeff_from_margin`` protocol supplies the loss; f32/bf16 rows only —
-an int8 operator defines a different problem and belongs to the staged
-schedule, not the polish).
+so once a stochastic solver has delivered the f32 floor, a handful of
+polish epochs — each one 2-pass read of the rows — closes rel 4e-5 →
+1e-6. Used by ``deep_solve``; reusable for any dense-rows coefficient
+oracle (the margin → ``coeff_from_margin`` protocol supplies the loss;
+f32/bf16 rows only — an int8 operator defines a different problem and
+belongs to the staged schedule, not the polish).
 
 No reference counterpart (CIAOAlgorithms.jl is f64-on-CPU throughout —
-this is the TPU answer to the accuracy its dtype gives for free).
+this is the f32 answer to the accuracy its dtype gives for free).
 """
 
 from __future__ import annotations
@@ -190,7 +186,7 @@ def power_lmax(F, x, key, iters: int = 8, margin_slack=0.0):
     Supersedes ``lsq_power_lmax`` (kept as the least-squares wrapper).
     Reference anchor: the reference needs no such machinery because its
     kernels are f64 end-to-end (``src/algorithms/Finito/
-    Finito_basic.jl:14``); this is the TPU route to the same accuracy.
+    Finito_basic.jl:14``); this is the f32 route to the same accuracy.
     """
     _require_wide_rows(F, "power_lmax")
     A, _ = F.coeff_rows_data()

@@ -23,10 +23,10 @@ Convergence requires  τ·(L_f/2 + σ‖K‖²) ≤ 1.  Defaults: σ = 1/‖K‖
 τ = 1/(L_f/2 + σ‖K‖²) with L_f = mean(L) (the full finite-sum's
 modulus) and ‖K‖ from the map's ``opnorm_bound``.
 
-TPU shape: the only O(N) work is the full gradient — the same ONE
-fused streaming pass as FB/FISTA/Davis-Yin
-(`solvers.fb.full_gradient`); K's matvec/rmatvec are MXU matmuls or
-VPU stencils, and the proxes are O(n)/O(m) elementwise. State is two
+Data path: the only O(N) work is the full gradient — the same ONE
+pass as FB/FISTA/Davis-Yin (`solvers.fb.full_gradient`); K's
+matvec/rmatvec are matmuls or stencils, and the proxes are O(n)/O(m)
+elementwise. State is two
 vectors (x, y).
 """
 
@@ -46,7 +46,7 @@ from ciao_tpu.solvers.base import (
     real_dtype_of,
     run_solver_loop,
 )
-from ciao_tpu.solvers.fb import full_gradient, fused_full_grad_available
+from ciao_tpu.solvers.fb import full_gradient
 
 
 def prox_conjugate(h, u, sigma):
@@ -57,8 +57,6 @@ def prox_conjugate(h, u, sigma):
 
 class PDCfg(NamedTuple):
     N: int
-    fused: bool = False
-    fused_precision: str = "highest"
 
 
 class PDState(NamedTuple):
@@ -90,8 +88,7 @@ def _pd_step(F, g, h, K, cfg: PDCfg, state: PDState,
     psum-wrapped full gradient while reusing this body verbatim."""
     tau, sigma = state.tau, state.sigma
     if grad_fn is None:
-        grad = full_gradient(F, cfg.N, state.x, cfg.fused,
-                             cfg.fused_precision)
+        grad = full_gradient(F, cfg.N, state.x)
     else:
         grad = grad_fn(state.x)
     x_new = g.prox_only(state.x - tau * (grad + K.rmatvec(state.y)), tau)
@@ -126,13 +123,11 @@ class CondatVu:
     maxit: int = 1000
     verbose: bool = False
     freq: int = 100
-    fused_precision: str = "highest"
 
     def __post_init__(self):
         assert self.tau is None or self.tau > 0
         assert self.sigma is None or self.sigma > 0
         assert self.maxit > 0 and self.freq > 0
-        assert self.fused_precision in ("highest", "default")
 
     def _stepsizes(self, Lf, normK, rdt):
         """σ = 1/‖K‖ (unless given), then the largest τ satisfying the
@@ -182,8 +177,7 @@ class CondatVu:
             )
         tau, sigma = self._stepsizes(Lf, float(K.opnorm_bound(x0.shape[0])),
                                      rdt)
-        fused = fused_full_grad_available(F, x0, N)
-        cfg = PDCfg(N=N, fused=fused, fused_precision=self.fused_precision)
+        cfg = PDCfg(N=N)
         init = lambda: pd_init(F, g, h, K, x0, tau, sigma, cfg)
         return x0, F, g, h, K, cfg, init
 

@@ -15,8 +15,8 @@ forms the unbiased direction first, then refreshes the average.
 
 Beyond the reference (its TODO at SAGA_basic.jl:74): ``batch > 1``
 draws a without-replacement minibatch and applies the averaged update —
-the standard minibatch-SAGA estimator — keeping per-chip MXU utilization
-high at scale.
+the standard minibatch-SAGA estimator — keeping the accelerator busy
+at scale.
 """
 
 from __future__ import annotations
@@ -43,32 +43,12 @@ class SAGACfg(NamedTuple):
     sag: bool
     batch: int = 1
     block: bool = False  # uniform CONTIGUOUS block instead of iid subset
-    fused: bool = False  # Pallas one-pass table refresh (TPU, f32)
     coeff: bool = False  # (N,) coefficient table instead of (N, n) rows
-    fused_precision: str = "highest"  # MXU dots in fused kernels
     importance: bool = False  # Lipschitz-proportional block sampling
-    # streamed-table fused kernel (any N — the VMEM slab caps the
-    # ``fused`` kernel at N ≤ 1M): the (1, N) coefficient row streams
-    # through aliased windows, launches clamp at the first same-launch
-    # block revisit (the ProShI clamp machinery)
-    fused_stream: bool = False
-    # SYSTEMATIC-πps importance schedule (streamed path only): step it
-    # maps to window w = it//iwin, slot k = it%iwin; the window draws
-    # ONE uniform U and slot k selects the block whose interval of
-    # cumsum(iwin·q̃) contains U + k, with q̃ the CLIPPED distribution
-    # (sampling.clip_block_distribution caps every block at 1/iwin
-    # mass, so every inclusion probability π_j = iwin·q̃_j ≤ 1 and no
-    # interval can contain two unit-spaced grid points) — same-window
-    # draws are DISTINCT BY CONSTRUCTION, so the streamed kernel's
-    # clamp never fires under ANY L skew (the iid schedule birthday-
-    # collapses at skewed q; a per-slot stratified variant was measured
-    # and dropped: near-cap blocks straddle slot boundaries and clamp
-    # ~1/3 of each window). Classic systematic probability-
-    # proportional-to-size sampling; each block's marginal visit rate
-    # is exactly q̃_j per step. The slab/stepwise small-N paths keep
-    # the round-3 iid inverse-CDF schedule (istrat=False).
-    istrat: bool = False
-    iwin: int = 64
+    # coefficient block step through the Hopper kernel
+    # (ops.saga_block) instead of XLA; the facade sets it from
+    # runtime.block_step_kernel
+    kernel: bool = False
 
 
 class SAGAState(NamedTuple):
@@ -82,8 +62,6 @@ class SAGAState(NamedTuple):
     # importance sampling only (beyond the reference): the block
     # distribution's inclusive CDF (d,) and the per-block unbiasedness
     # weights 1/(d·q_j) (d,); None otherwise (leafless pytree nodes).
-    # Under the systematic istrat schedule ``qcum`` holds the π-scale
-    # CDF cumsum(iwin·q̃) (last entry snapped to exactly iwin).
     qcum: object = None
     qinv: object = None
 
@@ -150,9 +128,8 @@ def _saga_direction(cfg, state, innov, B, wgt=1.0):
 
 def _block_start(key, it, N: int, B: int):
     """Stateless uniform block start for step ``it``: deterministic in
-    (key, it), so the fused driver can draw K steps' starts in ONE
-    vectorized pass (a sequential split-chain costs ~64 scalar threefry
-    rounds per launch — measurably ~0.006 ms/step)."""
+    (key, it), so a run can be split into chunks without changing the
+    stream."""
     k = jax.random.fold_in(key, it)
     return jax.random.randint(k, (), 0, N // B, dtype=jnp.int32) * B
 
@@ -170,26 +147,43 @@ def _block_choice(cfg: SAGACfg, state: SAGAState):
     N, B = cfg.N, cfg.batch
     if not cfg.importance:
         return _block_start(state.key, state.it, N, B), 1.0
-    d = N // B
-    if cfg.istrat:
-        # systematic πps draw: one U per window, slot k takes grid
-        # point U + k against the π-scale CDF (see SAGACfg.istrat).
-        # Deterministic in (key, it).
-        K = min(cfg.iwin, d)
-        w = state.it // K
-        k = state.it % K
-        u = (k.astype(state.qcum.dtype)
-             + jax.random.uniform(jax.random.fold_in(state.key, w), (),
-                                  state.qcum.dtype))
-    else:
-        u = jax.random.uniform(
-            jax.random.fold_in(state.key, state.it), (), state.qcum.dtype
-        )
+    u = jax.random.uniform(jax.random.fold_in(state.key, state.it), (),
+                           state.qcum.dtype)
     j = jnp.minimum(
         jnp.searchsorted(state.qcum, u, side="right").astype(jnp.int32),
-        d - 1,
+        N // B - 1,
     )
     return j * B, state.qinv[j]
+
+
+def coeff_block_xla(F, s, z, start, B: int):
+    """(table, innovation) of one coefficient block step in plain XLA:
+    the new coefficients of rows [start, start+B), written into the
+    table, and Σ (c_new − c_old)·a_i over the block."""
+    c_new = F.coeff_block(z, start, B)
+    c_old = jax.lax.dynamic_slice_in_dim(s, start, B)
+    innov = F.apply_rows_block(c_new - c_old, start, B)
+    return jax.lax.dynamic_update_slice_in_dim(s, c_new, start, 0), innov
+
+
+def coeff_block_kernel(F, s, z, start, B: int, interpret: bool = False):
+    """:func:`coeff_block_xla` through the Hopper kernel
+    (ops.saga_block): one read of the block's rows. ``interpret`` runs
+    the Pallas interpreter (tests only); without it the step raises
+    off a CUDA GPU."""
+    from ciao_tpu import runtime
+    from ciao_tpu.ops.saga_block import saga_block_step
+
+    if not (interpret or runtime.on_gpu()):
+        raise ValueError("the Hopper SAGA block-step kernel runs on a CUDA "
+                         f"GPU only; the backend is {jax.default_backend()!r}")
+
+    rows, offs = F.coeff_rows_data()
+    return saga_block_step(
+        rows, offs, F.coeff_rows_scale(), s, z, start,
+        getattr(F, "scale", 1.0), getattr(F, "delta", 0.0),
+        B=B, mode=F.coeff_mode, interpret=interpret,
+    )
 
 
 def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState) -> SAGAState:
@@ -201,10 +195,8 @@ def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState) -> SAGAState:
         # stateless schedule: key constant, it advances
         key = state.key
         start, wgt = _block_choice(cfg, state)
-        c_new = F.coeff_block(state.z, start, B)
-        c_old = jax.lax.dynamic_slice_in_dim(state.s, start, B)
-        innov = F.apply_rows_block(c_new - c_old, start, B)
-        s = jax.lax.dynamic_update_slice_in_dim(state.s, c_new, start, 0)
+        block_step = coeff_block_kernel if cfg.kernel else coeff_block_xla
+        s, innov = block_step(F, state.s, state.z, start, B)
     else:
         wgt = 1.0
         key, sub = jax.random.split(state.key)
@@ -222,44 +214,23 @@ def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState) -> SAGAState:
 
 
 def _saga_step(F, g, cfg: SAGACfg, state: SAGAState) -> SAGAState:
-    if cfg.importance and (cfg.sag or (cfg.fused and not cfg.coeff)):
-        # the SAG and full-table fused branches ignore the 1/(d·q_j)
-        # unbiasedness weight — running them under importance draws
-        # would silently bias the direction. (coeff+fused IS supported:
-        # the multi-step kernel takes the weights as a prefetch operand,
-        # and this stepwise remainder path runs the weight-correct
-        # _saga_step_coeff XLA branch.) The facade rejects the invalid
-        # combinations; guard here too since SAGACfg is also
-        # constructed directly.
+    if cfg.importance and cfg.sag:
+        # SAG's average-first order has no importance-weighted analog:
+        # running it under importance draws would silently bias the
+        # direction. The facade rejects it; guard here too since
+        # SAGACfg is also constructed directly.
         raise ValueError(
-            "SAGACfg(importance=True) is incompatible with sag=True or "
-            "with fused=True on the full-table path (those step "
-            "branches ignore the importance unbiasedness weight)"
+            "SAGACfg(importance=True) is incompatible with sag=True"
         )
     if cfg.coeff:
         return _saga_step_coeff(F, g, cfg, state)
     N, B = cfg.N, cfg.batch
     if cfg.block:
-        # TPU fast path: a uniformly-drawn CONTIGUOUS block (partition-
-        # stratified minibatch SAGA) — dynamic-slice DMAs instead of the
-        # row gather/scatter, which is ~10x off HBM bandwidth on TPU.
-        # Stateless (key, it) schedule; key is not advanced.
+        # a uniformly-drawn CONTIGUOUS block (partition-stratified
+        # minibatch SAGA): dynamic slices instead of a row gather and
+        # scatter. Stateless (key, it) schedule; key is not advanced.
         key = state.key
         start, wgt = _block_choice(cfg, state)
-        if cfg.fused:
-            # Pallas: gradient + table write + innovation in ONE VMEM pass
-            s, innov = F.fused_saga_block(
-                state.s, state.z, start, B, precision=cfg.fused_precision
-            )
-            diff = innov / B
-            if cfg.sag:
-                av = state.av + innov / N
-                w = state.z - state.gamma * av
-            else:
-                w = state.z - state.gamma * (diff + state.av)
-                av = state.av + innov / N
-            z = g.prox_only(w, state.gamma)
-            return state._replace(s=s, av=av, z=z, key=key, it=state.it + 1)
         G_B = F.grad_block(state.z, start, B)
         s_old = jax.lax.dynamic_slice_in_dim(state.s, start, B, 0)
         diff = jnp.mean(G_B - s_old, axis=0)
@@ -291,230 +262,8 @@ def _saga_step(F, g, cfg: SAGACfg, state: SAGAState) -> SAGAState:
     return state._replace(s=s, av=av, z=z, key=key, it=state.it + 1)
 
 
-def _gen_block_starts(key, it0, cfg, k: int):
-    """The K starts of steps it0..it0+k-1 under the stateless (key, it)
-    schedule of ``_block_start`` — ONE vectorized fold-in/draw pass, so
-    the fused multi-step path reproduces the stepwise sampling stream
-    bit-for-bit without a sequential split chain."""
-    its = it0 + jnp.arange(k, dtype=jnp.int32)
-    keys = jax.vmap(lambda t: jax.random.fold_in(key, t))(its)
-    d = cfg.N // cfg.batch
-    js = jax.vmap(
-        lambda kk: jax.random.randint(kk, (), 0, d, dtype=jnp.int32)
-    )(keys)
-    return js * cfg.batch
-
-
-def _gen_importance_draws(key, it0, cfg, qcum, qinv, k: int):
-    """The K (start, weight) pairs of steps it0..it0+k-1 under the
-    importance schedule — ONE vectorized fold-in/uniform/searchsorted
-    pass, bit-identical to ``k`` calls of :func:`_block_choice` (both
-    the iid and the systematic ``istrat`` variants)."""
-    d = cfg.N // cfg.batch
-    its = it0 + jnp.arange(k, dtype=jnp.int32)
-    if cfg.istrat:
-        K = min(cfg.iwin, d)
-        ws = its // K
-        ks = its % K
-        u = (ks.astype(qcum.dtype)
-             + jax.vmap(lambda w: jax.random.uniform(
-                 jax.random.fold_in(key, w), (), qcum.dtype))(ws))
-    else:
-        keys = jax.vmap(lambda t: jax.random.fold_in(key, t))(its)
-        u = jax.vmap(lambda kk: jax.random.uniform(kk, (), qcum.dtype))(keys)
-    j = jnp.minimum(
-        jnp.searchsorted(qcum, u, side="right").astype(jnp.int32), d - 1
-    )
-    return j * cfg.batch, qinv[j]
-
-
-def _saga_run_fused(F, g, state, cfg: SAGACfg, steps: int):
-    """Fused multi-step driver: K block steps per Pallas launch
-    (ops.saga_coeff_multistep), amortizing the per-launch overhead that
-    otherwise rivals the whole coefficient-mode step."""
-    from ciao_tpu.ops import saga_coeff_multistep
-
-    B = cfg.batch
-    K = min(128, steps)
-    L = steps // K
-    rem = steps - L * K
-    rows, offs = F.coeff_rows_data()
-    from ciao_tpu.ops.fused_block import oracle_scalar_consts
-
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    scalars = jnp.stack(
-        [
-            scale,
-            jnp.asarray(state.gamma, jnp.float32),
-            jnp.asarray(state.gamma * lam, jnp.float32),
-            jnp.asarray(1.0 / B, jnp.float32),
-            jnp.asarray(1.0 / cfg.N, jnp.float32),
-            jnp.asarray(1.0 if cfg.sag else 0.0, jnp.float32),
-            mode,
-            aux,
-        ]
-    )[None, :]
-
-    from ciao_tpu.ops.fused_block import SLAB_ROWS, rows_scale_slab
-
-    slab = (SLAB_ROWS, cfg.N // SLAB_ROWS)
-    b8 = offs.reshape(slab)
-    rs8 = rows_scale_slab(F)
-
-    def body(carry, it0):
-        c8, z2, av2 = carry
-        if cfg.importance:
-            starts, wgts = _gen_importance_draws(
-                state.key, it0, cfg, state.qcum, state.qinv, K
-            )
-        else:
-            starts = _gen_block_starts(state.key, it0, cfg, K)
-            wgts = None
-        c8, z2, av2 = saga_coeff_multistep(
-            rows, b8, starts, c8, z2, av2, scalars, B,
-            precision=cfg.fused_precision, rs8=rs8, wgts=wgts,
-        )
-        return (c8, z2, av2), None
-
-    its0 = state.it + K * jnp.arange(L, dtype=jnp.int32)
-    (c8, z2, av2), _ = jax.lax.scan(
-        body,
-        (
-            state.s.reshape(slab),
-            state.z[None, :],
-            state.av[None, :],
-        ),
-        its0,
-    )
-    state = state._replace(
-        s=c8.reshape(cfg.N), z=z2[0], av=av2[0],
-        it=state.it + jnp.asarray(L * K, jnp.int32),
-    )
-    for _ in range(rem):
-        state = _saga_step(F, g, cfg, state)
-    return state
-
-
-def stream_launch_K(d: int, factor: float = 1.0) -> int:
-    """Launch size for clamped streamed launches (shared by the SAGA /
-    Point-SAGA / SSNM fused_stream drivers AND ProShI's random-block
-    driver, which passes ``factor=1.25``): K ≤ d is the masked-redirect
-    free-block contract, and the ~√d sizing keeps the birthday clamp's
-    committed fraction high. One helper so the sizing is tuned in one
-    place."""
-    return min(64, d, max(8, (int(factor * d ** 0.5) // 8) * 8))
-
-
-def run_clamped_stream(state, steps: int, K: int, carry_arrays, launch,
-                       rebuild, stepwise):
-    """The clamped-launch loop scaffold shared by the fused_stream
-    drivers: run ``launch`` (which commits a DYNAMIC f ≤ K steps and
-    appends the advanced ``it`` as the carry's last element) while a
-    full window fits, rebuild the solver state from the carry, then
-    finish the dynamic (< K) remainder with the stepwise ``stepwise``
-    on the same stateless (key, it) stream."""
-    target = state.it + jnp.asarray(steps, jnp.int32)
-    carry = jax.lax.while_loop(
-        lambda c: c[-1] + K <= target, launch,
-        tuple(carry_arrays) + (state.it,),
-    )
-    state = rebuild(state, carry)
-    return jax.lax.while_loop(lambda st: st.it < target, stepwise, state)
-
-
-def _saga_run_fused_streamed(F, g, state, cfg: SAGACfg, steps: int):
-    """Fused multi-step driver for N beyond the VMEM slab cap: the
-    (1, N) coefficient row STREAMS through the kernel with in/out
-    aliasing (ops.saga_coeff_multistep_streamed). Launch windows are
-    drawn from the stateless (key, it) stream and CLAMPED at the first
-    same-launch block revisit — the committed prefix reproduces the
-    stepwise draw stream bit-for-bit (the discarded tail is re-drawn
-    identically next launch). One jitted while_loop; the dynamic
-    (< K) remainder runs stepwise."""
-    from ciao_tpu.ops.fused_block import (
-        oracle_scalar_consts,
-        rows_scale_row,
-        saga_coeff_multistep_streamed,
-    )
-    from ciao_tpu.sampling import first_duplicate
-
-    B, N = cfg.batch, cfg.N
-    d = N // B
-    K = min(cfg.iwin, d) if cfg.importance else stream_launch_K(d)
-    rows, offs = F.coeff_rows_data()
-    b1 = offs[None, :]
-    rs1 = rows_scale_row(F)
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    scalars = jnp.stack([
-        scale,
-        jnp.asarray(state.gamma, jnp.float32),
-        jnp.asarray(state.gamma * lam, jnp.float32),
-        jnp.asarray(1.0 / B, jnp.float32),
-        jnp.asarray(1.0 / N, jnp.float32),
-        jnp.asarray(1.0 if cfg.sag else 0.0, jnp.float32),
-        mode,
-        aux,
-    ])[None, :]
-    interp = jax.default_backend() != "tpu"
-
-    def launch(carry):
-        c1, z2, av2, it = carry
-        if cfg.importance:
-            starts, wgts = _gen_importance_draws(
-                state.key, it, cfg, state.qcum, state.qinv, K
-            )
-        else:
-            starts = _gen_block_starts(state.key, it, cfg, K)
-            wgts = None
-        fcl = first_duplicate(starts // B)
-        c1, z2, av2 = saga_coeff_multistep_streamed(
-            rows, b1, starts, c1, z2, av2, scalars, B,
-            precision=cfg.fused_precision, rs1=rs1, wgts=wgts, f=fcl,
-            interpret=interp,
-        )
-        return (c1, z2, av2, it + fcl)
-
-    if cfg.importance:
-        # stratified schedule (cfg.istrat is required by the facade on
-        # this path): launches must be WINDOW-ALIGNED — a launch
-        # spanning two windows re-draws hot near-1/K-mass blocks in
-        # both halves and clamps early. The loop launches only when
-        # it % K == 0 and otherwise advances ONE stepwise step (initial
-        # it=1 alignment, plus re-alignment after a rare straddle
-        # clamp); everything stays inside one jitted while_loop.
-        target = state.it + jnp.asarray(steps, jnp.int32)
-
-        def do_launch(st):
-            c1, z2, av2, it = launch(
-                (st.s[None, :], st.z[None, :], st.av[None, :], st.it)
-            )
-            return st._replace(s=c1[0], z=z2[0], av=av2[0], it=it)
-
-        def body(st):
-            aligned = (st.it % K == 0) & (st.it + K <= target)
-            return jax.lax.cond(
-                aligned, do_launch, lambda s: _saga_step(F, g, cfg, s),
-                st,
-            )
-
-        return jax.lax.while_loop(lambda st: st.it < target, body, state)
-
-    return run_clamped_stream(
-        state, steps, K,
-        (state.s[None, :], state.z[None, :], state.av[None, :]), launch,
-        lambda st, c: st._replace(s=c[0][0], z=c[1][0], av=c[2][0],
-                                  it=c[3]),
-        lambda st: _saga_step(F, g, cfg, st),
-    )
-
-
 @partial(jax.jit, static_argnames=("cfg", "steps"))
 def saga_run(F, g, state, cfg: SAGACfg, steps: int):
-    if cfg.coeff and cfg.fused and steps >= 8:
-        return _saga_run_fused(F, g, state, cfg, steps)
-    if cfg.coeff and cfg.fused_stream and steps >= 8:
-        return _saga_run_fused_streamed(F, g, state, cfg, steps)
-
     def body(s, _):
         with jax.named_scope("saga_step"):
             return _saga_step(F, g, cfg, s), None
@@ -525,67 +274,6 @@ def saga_run(F, g, state, cfg: SAGACfg, steps: int):
 @partial(jax.jit, static_argnames=("cfg",))
 def saga_step(F, g, state, cfg: SAGACfg):
     return _saga_step(F, g, cfg, state)
-
-
-def _warn_saga_fallback(self, F, g, x0, coeff):
-    """One-time TPU warning when a block-sampling SAGA config lands on
-    the stepwise XLA path (VERDICT r3 weak #1: the silent 4× cliff),
-    naming the first closed gate and its remedy. Complex dtypes are
-    exempt (no fused kernel exists for them by design — not
-    user-fixable). Silent off-TPU and when a fused path is taken."""
-    from ciao_tpu import runtime
-
-    if not runtime.on_tpu() or jnp.iscomplexobj(x0):
-        return
-    from ciao_tpu.prox import NormL1
-
-    if hasattr(F, "nnz_per_row"):
-        # sparse oracles are ROUTING-bound, not kernel-gated: no fused
-        # kernel exists by design (PERF.md sparse section). The hybrid
-        # hot/cold layout is already the fast path — stay silent; a
-        # pure-ELL layout leaves the known 4× routing win on the table.
-        if not hasattr(F, "A_hot"):
-            runtime.warn_fused_fallback(
-                "SAGA", "pure-ELL sparse rows are bound by the chip's "
-                "~125M elem/s fine-grained routing rate on every slot",
-                "store the hot columns dense via "
-                "HybridSparseLeastSquares/HybridSparseLogistic "
-                "(measured 4x on power-law data, PERF.md)",
-            )
-        return
-    if x0.dtype != jnp.float32:
-        runtime.warn_fused_fallback(
-            "SAGA", f"the iterate dtype is {x0.dtype} and the fused "
-            "kernels are f32-only",
-            "use float32 iterates — precision belongs in the oracle's "
-            "row storage (with_storage) and the deep_solve polish "
-            "stage, not the iterate dtype",
-        )
-    elif coeff and not (hasattr(F, "coeff_rows_data")
-                        and isinstance(g, (NormL1, Zero))):
-        runtime.warn_fused_fallback(
-            "SAGA", "the in-kernel prox covers NormL1/Zero only, and "
-            "the oracle must expose dense rows (coeff_rows_data)",
-            "use g=NormL1 or g=Zero (run other penalties via "
-            "ForwardBackward/PANOC, or polish with deep_solve), and a "
-            "dense-rows oracle",
-        )
-    elif coeff:
-        runtime.warn_fused_fallback(
-            "SAGA", "the kernel shape gates failed (n must be a "
-            "multiple of 128 lanes; N divisible by batch; the "
-            "streamed any-N kernel additionally needs N/batch >= 64 "
-            "blocks)",
-            "zero-pad n to the 128-lane boundary (examples/"
-            "lasso_10m.py) and pick batch so N/batch >= 64",
-        )
-    else:
-        runtime.warn_fused_fallback(
-            "SAGA", "the full-table (N, n) path has no any-N fused "
-            "kernel (and int8 rows never serve it)",
-            "use a rank-1 oracle so table='auto' selects the "
-            "coefficient table — every fused path needs it",
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -599,12 +287,9 @@ class SAGA:
     freq: int = 1000
     SAG_flag: bool = False
     batch: int = 1
-    block_sampling: bool = False  # contiguous-block minibatches (TPU fast path)
+    block_sampling: bool = False  # contiguous-block minibatches (slices)
     importance_sampling: bool = False  # q_j ∝ L_j block draws (needs L)
     table: str = "auto"  # "full" (N,n) | "coeff" (N,) | "auto" (coeff if rank-1)
-    fused_precision: str = "highest"  # "highest" = exact-f32 MXU dots;
-    # "default" = bf16-multiply/f32-accumulate (1 MXU pass — what plain
-    # jnp.dot already does on TPU), ~2x faster fused kernels
     seed: int = 0
 
     def __post_init__(self):
@@ -612,7 +297,6 @@ class SAGA:
         assert self.maxit > 0
         assert self.freq > 0
         assert self.batch >= 1
-        assert self.fused_precision in ("highest", "default")
 
     def _setup(self, x0, F, g, L, N):
         x0 = jnp.asarray(x0)
@@ -627,7 +311,6 @@ class SAGA:
             g = Zero()
         rdt = real_dtype_of(x0)
         qcum = qinv = None
-        Lblk64 = q64 = None
         if self.importance_sampling:
             # Lipschitz-proportional block sampling (beyond the
             # reference): q_j ∝ L_j of the contiguous block (max of the
@@ -651,14 +334,17 @@ class SAGA:
             # Build the block distribution in float64 on host: a f32
             # cumsum over a large block count d drifts enough to skew
             # the realized draws away from the exact q used in the
-            # 1/(d·q_j) weights. (qcum/qinv are materialized AFTER the
-            # fused gating below — the streamed path clips q first.)
+            # 1/(d·q_j) weights.
             Lb64 = np.asarray(jax.device_get(jnp.asarray(L)), np.float64)
             if Lb64.ndim == 0:
                 Lb64 = np.full((N,), Lb64)
             d_imp = N // self.batch
             Lblk64 = np.max(Lb64.reshape(d_imp, self.batch), axis=1)
             q64 = Lblk64 / np.sum(Lblk64)
+            qcum64 = np.cumsum(q64)
+            qcum64 /= qcum64[-1]
+            qcum = jnp.asarray(qcum64, rdt)
+            qinv = jnp.asarray(1.0 / (d_imp * q64), rdt)
         if self.block_sampling and N % self.batch != 0:
             raise ValueError("SAGA block_sampling needs N divisible by batch")
         assert self.table in ("auto", "full", "coeff")
@@ -667,85 +353,11 @@ class SAGA:
             if self.table == "auto"
             else self.table == "coeff"
         )
-        fused = False
-        fused_stream = False
-        if self.block_sampling and x0.dtype == jnp.float32:
-            # NOTE: import only NormL1 — importing Zero here would
-            # shadow the module-level Zero and break the ``g = Zero()``
-            # default above (UnboundLocalError when g is None)
-            from ciao_tpu.ops import coeff_multistep_available, fused_block_available
-            from ciao_tpu.ops.fused_block import (
-                coeff_multistep_streamed_available,
-            )
-            from ciao_tpu.prox import NormL1
+        from ciao_tpu import runtime
 
-            if coeff:
-                # multi-step fused kernel: needs the rank-1 row data and
-                # an in-kernel prox (L1 soft-threshold; Zero = thr 0).
-                # Importance sampling rides the same kernel: the
-                # inverse-CDF draws + 1/(d·q_j) weights are vectorized
-                # into the scalar-prefetch stream (_gen_importance_draws)
-                kernel_ok = (
-                    hasattr(F, "coeff_rows_data")
-                    and isinstance(g, (NormL1, Zero))
-                )
-                fused = kernel_ok and coeff_multistep_available(
-                    N, x0.size, self.batch, x0.dtype
-                )
-                # beyond the VMEM slab cap (N > 1M): the streamed-table
-                # kernel, launches clamped at same-launch block
-                # revisits. Importance sampling rides it too (round 4):
-                # iid draws from a skewed q would birthday-collapse the
-                # clamp, so the facade switches to the STRATIFIED-
-                # CLIPPED schedule below (istrat) — distinct within
-                # each window by construction, clamps only on rare
-                # slot-straddles.
-                fused_stream = (
-                    kernel_ok and not fused
-                    and coeff_multistep_streamed_available(
-                        N, x0.size, self.batch, x0.dtype
-                    )
-                )
-            elif self.importance_sampling:
-                # the full-table fused kernel has no weighted direction
-                fused = False
-            else:
-                # full-table kernel: f32/bf16 rows only (int8 rows need
-                # the coeff path — the f32 table traffic dominates)
-                fused = (
-                    fused_block_available(N, x0.size, self.batch, x0.dtype)
-                    and hasattr(F, "fused_saga_block")
-                    and getattr(F, "row_scale", None) is None
-                )
-        if self.block_sampling and not (fused or fused_stream):
-            _warn_saga_fallback(self, F, g, x0, coeff)
-        istrat = False
-        iwin = 64
-        if self.importance_sampling:
-            d_imp = N // self.batch
-            if fused_stream:
-                # streamed any-N importance (VERDICT r3 #2): clip q so
-                # no block exceeds 1/K window mass (truncated
-                # importance distribution — the classic variance-
-                # bounded form), then systematic-πps draws per window
-                # (SAGACfg.istrat): π_j = K·q̃_j ≤ 1 keeps same-window
-                # draws distinct by construction
-                from ciao_tpu.sampling import clip_block_distribution
-
-                iwin = min(64, d_imp)
-                q64, _ = clip_block_distribution(q64, iwin)
-                istrat = True
-                L_eff64 = float(np.max(Lblk64 / (d_imp * q64)))
-                # π-scale CDF; the last entry snaps to exactly K so the
-                # top grid point U + (K-1) < K always lands inside
-                qcum64 = np.cumsum(iwin * q64)
-                qcum64 *= iwin / qcum64[-1]
-                qcum64[-1] = iwin
-            else:
-                qcum64 = np.cumsum(q64)
-                qcum64 /= qcum64[-1]
-            qcum = jnp.asarray(qcum64, rdt)
-            qinv = jnp.asarray(1.0 / (d_imp * q64), rdt)
+        kernel = runtime.block_step_kernel(
+            F, x0, self.batch, coeff and self.block_sampling
+        )
         if self.gamma is not None:
             gamma = jnp.asarray(self.gamma, rdt)
         else:
@@ -755,23 +367,17 @@ class SAGA:
                 )
             if self.importance_sampling:
                 # stepsize dividend = the EFFECTIVE smoothness
-                # max_j L_j/(d·q_j): equals mean block smoothness for
-                # the exact q ∝ L (the round-3 rule) and degrades
-                # gracefully for the clipped q̃ (clipped blocks are
-                # visited less → larger effective modulus)
-                if not istrat:
-                    L_eff64 = float(np.max(Lblk64 / (d_imp * q64)))
+                # max_j L_j/(d·q_j), which is the mean block smoothness
+                # for q ∝ L
+                L_eff64 = float(np.max(Lblk64 / (d_imp * q64)))
                 gamma = jnp.asarray(1.0 / (3.0 * L_eff64), rdt)
             else:
                 L_max = jnp.max(jnp.asarray(L, rdt))
                 gamma = 1.0 / ((16.0 if self.SAG_flag else 3.0) * L_max)
         cfg = SAGACfg(
             N=N, sag=self.SAG_flag, batch=self.batch,
-            block=self.block_sampling, fused=fused, coeff=coeff,
-            fused_precision=self.fused_precision,
-            importance=self.importance_sampling,
-            fused_stream=fused_stream,
-            istrat=istrat, iwin=iwin,
+            block=self.block_sampling, coeff=coeff,
+            importance=self.importance_sampling, kernel=kernel,
         )
         key = jax.random.PRNGKey(self.seed)
         if self.importance_sampling:

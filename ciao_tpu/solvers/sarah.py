@@ -22,13 +22,11 @@ bound O(√N/ε²)). The composite step is ProxSARAH's damped prox
 
 with η = 1 recovering plain prox-SARAH/SpiderBoost.
 
-TPU mapping: the inner recursion needs ∇f_i at TWO nearby points over
-the SAME rows — exactly the fused ``grad_sum_diff_block`` read every
-oracle already provides for SVRG/Katyusha (one contiguous-block row DMA
-per inner step, two MXU matvecs per tile), so each inner step streams
-at the row-read bandwidth floor and no dedicated Pallas kernel is
-needed; the outer anchor ``v_0 = ∇f(x̃)`` is the same one-pass
-``grad_sum_all`` reduction as SVRG's.
+Data path: the inner recursion needs ∇f_i at TWO nearby points over
+the SAME rows — exactly the ``grad_sum_diff_block`` read every oracle
+already provides for SVRG/Katyusha (one contiguous-block row read per
+inner step, two matvecs over it); the outer anchor ``v_0 = ∇f(x̃)`` is
+the same one-pass ``grad_sum_all`` reduction as SVRG's.
 
 API matches the reference-style facades: ``SARAH(...)(x0, F=F, g=g,
 L=L, N=N)`` and ``.iterator(...)``; solution(state) = x̃ (the last
@@ -56,9 +54,7 @@ class SARAHCfg(NamedTuple):
     N: int
     batch: int = 1
     m: int = 1           # stochastic inner steps per outer iterate (static)
-    block: bool = False  # contiguous-block sampling (TPU fast path)
-    fused: bool = False  # Pallas K-inner-steps-per-launch kernel
-    fused_precision: str = "highest"  # MXU dots in fused kernels
+    block: bool = False  # contiguous-block sampling (slices, no gather)
 
 
 class SARAHState(NamedTuple):
@@ -91,10 +87,9 @@ def sarah_init(F, g, x0, gamma, eta, key, cfg: SARAHCfg) -> SARAHState:
     )
 
 
-def _sarah_inner(F, g, cfg, gamma, eta, sub, w_prev, w, v, steps, k0=0):
-    """``steps`` stepwise recursive inner iterations from inner index
-    ``k0`` — the (sub, k) stream mirrored exactly (and vectorized) by
-    the fused driver's ``_gen_block_starts`` (sampling parity)."""
+def _sarah_inner(F, g, cfg, gamma, eta, sub, w_prev, w, v, steps):
+    """``steps`` recursive inner iterations on the stateless (sub, k)
+    block stream."""
     from ciao_tpu.solvers.saga import _block_start
 
     N, B = cfg.N, cfg.batch
@@ -113,57 +108,9 @@ def _sarah_inner(F, g, cfg, gamma, eta, sub, w_prev, w, v, steps, k0=0):
         return (w, w_next, v), None
 
     (w_prev, w, v), _ = jax.lax.scan(
-        inner, (w_prev, w, v), k0 + jnp.arange(steps, dtype=jnp.int32)
+        inner, (w_prev, w, v), jnp.arange(steps, dtype=jnp.int32)
     )
     return w_prev, w, v
-
-
-def _sarah_step_fused(F, g, cfg: SARAHCfg, state: SARAHState,
-                      sub) -> SARAHState:
-    """Fused outer iterate: the bootstrap full pass runs as ONE
-    streaming kernel (ops.coeff_apply_all), the m recursive inner steps
-    as K-steps-per-launch kernels (ops.sarah_multistep — the live and
-    previous margins come from one stacked (2, TILE) MXU dot per tile,
-    so each inner block costs one row pass; measured 7.46 → ~3.7
-    ms/outer at the PERF.md config)."""
-    from ciao_tpu.ops.fused_block import (
-        _pick_tile, coeff_apply_all, oracle_scalar_consts, rows_scale_row,
-        rows_scale_slab, sarah_inner_chunked, SLAB_ROWS,
-    )
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    B, m = cfg.batch, cfg.m
-    gamma, eta = state.gamma, state.eta
-    rows, offs = F.coeff_rows_data()
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    tile = _pick_tile(B, cfg.N, state.x_tilde.size,
-                      esize=rows.dtype.itemsize)
-    _, gsum = coeff_apply_all(
-        rows, offs[None, :], state.x_tilde[None, :],
-        jnp.stack([scale, mode, aux])[None, :], tile,
-        precision=cfg.fused_precision, rs1=rows_scale_row(F),
-    )
-    v0 = gsum[0] / cfg.N
-    w_prev = state.x_tilde
-    w = _damped_prox(g, w_prev, v0, gamma, eta)
-    f32 = lambda v: jnp.asarray(v, jnp.float32)
-    scalars = jnp.stack([
-        scale, f32(gamma), f32(gamma * lam), f32(eta), f32(1.0 / B), mode,
-        aux,
-    ])[None, :]
-    slab = (SLAB_ROWS, cfg.N // SLAB_ROWS)
-    ww2, v2, done = sarah_inner_chunked(
-        rows, offs.reshape(slab),
-        jnp.stack([w_prev, w]), v0[None, :], scalars, B, m,
-        lambda k0, K: _gen_block_starts(sub, k0, cfg, K),
-        precision=cfg.fused_precision, rs8=rows_scale_slab(F),
-    )
-    w_prev, w, v = ww2[0], ww2[1], v2[0]
-    if done < m:
-        _, w, _ = _sarah_inner(
-            F, g, cfg, gamma, eta, sub, w_prev, w, v, m - done, k0=done,
-        )
-    return state._replace(x_tilde=w, it=state.it + 1)
 
 
 def _sarah_step(F, g, cfg: SARAHCfg, state: SARAHState) -> SARAHState:
@@ -173,8 +120,6 @@ def _sarah_step(F, g, cfg: SARAHCfg, state: SARAHState) -> SARAHState:
     N, m = cfg.N, cfg.m
     gamma, eta = state.gamma, state.eta
     key, sub = jax.random.split(state.key)
-    if cfg.fused:
-        return _sarah_step_fused(F, g, cfg, state._replace(key=key), sub)
 
     v0 = F.grad_sum_all(state.x_tilde) / N
     w_prev = state.x_tilde
@@ -216,14 +161,12 @@ class SARAH:
     m: Optional[int] = None
     batch: int = 1
     eta: float = 1.0
-    block_sampling: bool = False  # contiguous inner blocks (TPU fast path)
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc MXU dots
+    block_sampling: bool = False  # contiguous inner blocks (slices)
     seed: int = 0
 
     def __post_init__(self):
         assert self.gamma is None or self.gamma > 0
         assert self.maxit > 0 and self.freq > 0 and self.batch >= 1
-        assert self.fused_precision in ("highest", "default")
         assert 0.0 < self.eta <= 1.0
 
     def _setup(self, x0, F, g, L, N):
@@ -251,12 +194,7 @@ class SARAH:
             raise ValueError("SARAH: m must be >= 1")
         if self.block_sampling and N % self.batch != 0:
             raise ValueError("SARAH block_sampling needs N divisible by batch")
-        from ciao_tpu.solvers.base import fused_inner_gate
-
-        fused = fused_inner_gate(self.block_sampling, self.batch, x0, F,
-                                 g, N, who="SARAH")
-        cfg = SARAHCfg(N=N, batch=self.batch, m=m, block=self.block_sampling,
-                       fused=fused, fused_precision=self.fused_precision)
+        cfg = SARAHCfg(N=N, batch=self.batch, m=m, block=self.block_sampling)
         key = jax.random.PRNGKey(self.seed)
         eta = jnp.asarray(self.eta, rdt)
         init = lambda: sarah_init(F, g, x0, gamma, eta, key, cfg)

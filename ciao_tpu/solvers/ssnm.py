@@ -16,14 +16,14 @@ the momentum point y) steps from x with the 1/τ-scaled stepsize —
 exactly Katyusha's α = 1/(3τ₁L) coupling with the y-sequence replaced
 by the sampled stored point. At τ = 1 this is verbatim minibatch SAGA.
 
-TPU mapping — the reason SSNM is a natural fit here: for rank-1 row
+Data path — the reason SSNM is a natural fit here: for rank-1 row
 gradients the stored ∇f_i(φ_i) compress to the (N,) coefficient table,
 so ``∇f_j(y) − ∇f_j(φ_j)`` IS the SAGA innovation Σ(c(y)_i − c_i)·a_i —
 one block row read, one margin dot, one apply dot — and the sampled
 points φ live as the per-BLOCK eval-point table ``zb (d, n)`` exactly
 like the Finito coefficient state (uniform contiguous-block sampling:
 a block's rows always share their last update point). Per step the
-whole method costs the fused SAGA step plus one O(n) convex
+whole method costs the SAGA coefficient step plus one O(n) convex
 combination. Single-loop, constant-shape state: checkpoints and
 shards like SAGA's.
 
@@ -58,12 +58,6 @@ from ciao_tpu.solvers.base import (
 class SSNMCfg(NamedTuple):
     N: int
     batch: int = 1
-    fused: bool = False  # Pallas K-steps-per-launch kernel
-    fused_precision: str = "highest"  # MXU dots in fused kernels
-    # streamed-table fused kernel (any N): (1, N) coefficient row
-    # through clamped aliased windows, the (d, n) stored-point table
-    # VMEM-resident (the saga fused_stream machinery)
-    fused_stream: bool = False
 
 
 class SSNMState(NamedTuple):
@@ -99,7 +93,7 @@ def ssnm_init(F, g, x0, tau, eta, key, cfg: SSNMCfg) -> SSNMState:
 
 def _ssnm_step(F, g, cfg: SSNMCfg, state: SSNMState) -> SSNMState:
     """One SSNM step on a uniformly-drawn contiguous block (the same
-    stateless (key, it) stream as fused/stepwise SAGA)."""
+    stateless (key, it) stream as block SAGA)."""
     from ciao_tpu.solvers.saga import _block_start
 
     N, B = cfg.N, cfg.batch
@@ -119,111 +113,8 @@ def _ssnm_step(F, g, cfg: SSNMCfg, state: SSNMState) -> SSNMState:
     return state._replace(c=c, zb=zb, gbar=gbar, x=x, it=state.it + 1)
 
 
-def _ssnm_run_fused(F, g, state, cfg: SSNMCfg, steps: int):
-    """Fused multi-step driver: K block steps per Pallas launch
-    (ops.ssnm_multistep — the coefficient slab AND the (d, n) stored-
-    point table carried in VMEM, like the Finito coefficient kernel;
-    the sampled-momentum combination, direction, and prox in-kernel).
-    Sampling stream ≡ the stepwise path (vectorized
-    ``_gen_block_starts``)."""
-    from ciao_tpu.ops.fused_block import (
-        SLAB_ROWS, oracle_scalar_consts, rows_scale_slab, ssnm_multistep,
-    )
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    B = cfg.batch
-    K = min(128, steps)
-    L = steps // K
-    rem = steps - L * K
-    rows, offs = F.coeff_rows_data()
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    f32 = lambda v: jnp.asarray(v, jnp.float32)
-    scalars = jnp.stack([
-        scale, f32(state.eta), f32(state.eta * lam), f32(1.0 / B),
-        f32(1.0 / cfg.N), mode, f32(state.tau), aux,
-    ])[None, :]
-    slab = (SLAB_ROWS, cfg.N // SLAB_ROWS)
-    b8 = offs.reshape(slab)
-    rs8 = rows_scale_slab(F)
-
-    def body(carry, it0):
-        c8, zb, x2, gb2 = carry
-        starts = _gen_block_starts(state.key, it0, cfg, K)
-        c8, zb, x2, gb2 = ssnm_multistep(
-            rows, b8, starts, c8, zb, x2, gb2, scalars, B,
-            precision=cfg.fused_precision, rs8=rs8,
-        )
-        return (c8, zb, x2, gb2), None
-
-    its0 = state.it + K * jnp.arange(L, dtype=jnp.int32)
-    (c8, zb, x2, gb2), _ = jax.lax.scan(
-        body,
-        (state.c.reshape(slab), state.zb, state.x[None, :],
-         state.gbar[None, :]),
-        its0,
-    )
-    state = state._replace(
-        c=c8.reshape(cfg.N), zb=zb, x=x2[0], gbar=gb2[0],
-        it=state.it + jnp.asarray(L * K, jnp.int32),
-    )
-    for _ in range(rem):
-        state = _ssnm_step(F, g, cfg, state)
-    return state
-
-
-def _ssnm_run_fused_streamed(F, g, state, cfg: SSNMCfg, steps: int):
-    """Any-N fused driver: the (1, N) coefficient row streams through
-    clamped launches (ops.ssnm_multistep_streamed) with the (d, n)
-    stored-point table VMEM-resident — the saga fused_stream machinery
-    with the sampled-momentum math in-kernel."""
-    from ciao_tpu.ops.fused_block import (
-        oracle_scalar_consts, rows_scale_row, ssnm_multistep_streamed,
-    )
-    from ciao_tpu.sampling import first_duplicate
-    from ciao_tpu.solvers.saga import (
-        _gen_block_starts, run_clamped_stream, stream_launch_K,
-    )
-
-    B, N = cfg.batch, cfg.N
-    K = stream_launch_K(N // B)
-    rows, offs = F.coeff_rows_data()
-    b1 = offs[None, :]
-    rs1 = rows_scale_row(F)
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    f32 = lambda v: jnp.asarray(v, jnp.float32)
-    scalars = jnp.stack([
-        scale, f32(state.eta), f32(state.eta * lam), f32(1.0 / B),
-        f32(1.0 / N), mode, f32(state.tau), aux,
-    ])[None, :]
-    interp = jax.default_backend() != "tpu"
-
-    def launch(carry):
-        c1, zb, x2, gb2, it = carry
-        starts = _gen_block_starts(state.key, it, cfg, K)
-        fcl = first_duplicate(starts // B)
-        c1, zb, x2, gb2 = ssnm_multistep_streamed(
-            rows, b1, starts, c1, zb, x2, gb2, scalars, B,
-            precision=cfg.fused_precision, rs1=rs1, f=fcl,
-            interpret=interp,
-        )
-        return (c1, zb, x2, gb2, it + fcl)
-
-    return run_clamped_stream(
-        state, steps, K,
-        (state.c[None, :], state.zb, state.x[None, :],
-         state.gbar[None, :]), launch,
-        lambda st, c: st._replace(c=c[0][0], zb=c[1], x=c[2][0],
-                                  gbar=c[3][0], it=c[4]),
-        lambda st: _ssnm_step(F, g, cfg, st),
-    )
-
-
 @partial(jax.jit, static_argnames=("cfg", "steps"))
 def ssnm_run(F, g, state, cfg: SSNMCfg, steps: int):
-    if cfg.fused and steps >= 8:
-        return _ssnm_run_fused(F, g, state, cfg, steps)
-    if cfg.fused_stream and steps >= 8:
-        return _ssnm_run_fused_streamed(F, g, state, cfg, steps)
 
     def body(s, _):
         with jax.named_scope("ssnm_step"):
@@ -252,8 +143,8 @@ class SSNM:
     τ = min(½, √(N·σ/(3·L_max))). Without it τ defaults to ½ (pass
     ``tau`` explicitly for problem-specific schedules; τ = 1 is exactly
     minibatch SAGA). ``eta`` defaults to 1/(3·L_max). ``maxit`` counts
-    steps of ``batch`` rows (contiguous blocks — the TPU fast path is
-    the only sampling mode; N must divide by batch)."""
+    steps of ``batch`` rows (contiguous blocks are the only sampling
+    mode; N must divide by batch)."""
 
     maxit: int = 10000
     verbose: bool = False
@@ -262,12 +153,10 @@ class SSNM:
     tau: Optional[float] = None
     sigma: Optional[float] = None
     eta: Optional[float] = None
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc dots
     seed: int = 0
 
     def __post_init__(self):
         assert self.maxit > 0 and self.freq > 0 and self.batch >= 1
-        assert self.fused_precision in ("highest", "default")
         if self.tau is not None:
             assert 0.0 < self.tau <= 1.0
         assert self.eta is None or self.eta > 0
@@ -303,38 +192,7 @@ class SSNM:
             tau = jnp.asarray(0.5, rdt)
         eta = (jnp.asarray(self.eta, rdt) if self.eta is not None
                else 1.0 / (3.0 * tau * Lmax))  # the mirror coupling
-        fused = False
-        fused_stream = False
-        if self.batch > 1 and x0.dtype == jnp.float32:
-            from ciao_tpu.ops import finito_multistep_available
-            from ciao_tpu.ops.fused_block import (
-                ssnm_multistep_streamed_available,
-            )
-            from ciao_tpu.prox import NormL1
-
-            # the kernel carries the coefficient slab AND the (d, n)
-            # stored-point table in VMEM — the Finito-coeff budget
-            kernel_ok = (
-                hasattr(F, "coeff_rows_data")
-                and isinstance(g, (NormL1, Zero))
-            )
-            fused = kernel_ok and finito_multistep_available(
-                N, x0.size, self.batch, x0.dtype
-            )
-            # beyond the slab cap: streamed c, zb stays VMEM-resident
-            fused_stream = (
-                kernel_ok and not fused
-                and ssnm_multistep_streamed_available(
-                    N, x0.size, self.batch, x0.dtype
-                )
-            )
-        if self.batch > 1 and not (fused or fused_stream):
-            from ciao_tpu.solvers.base import warn_fused_gate_fallback
-
-            warn_fused_gate_fallback("SSNM", F, g, x0)
-        cfg = SSNMCfg(N=N, batch=self.batch, fused=fused,
-                      fused_stream=fused_stream,
-                      fused_precision=self.fused_precision)
+        cfg = SSNMCfg(N=N, batch=self.batch)
         key = jax.random.PRNGKey(self.seed)
         init = lambda: ssnm_init(F, g, x0, tau, eta, key, cfg)
         return x0, F, g, cfg, init

@@ -5,7 +5,7 @@ iterate = m variance-reduced inner prox steps + a full-gradient anchor
 refresh. The inner loop runs as a ``lax.fori_loop`` with the (dynamic)
 trip count ``m`` carried in state, so SVRG++'s doubling schedule
 (SVRG_basic.jl:93) needs no re-compilation; the anchor refresh is one
-fused full-pass matmul + (when sharded) a psum.
+full-pass matmul + (when sharded) a psum.
 
 Init quirks preserved: z_full = x0, inner sum z = 0, w = x0
 (SVRG_basic.jl:64-67) — so solution(init state) == x0 and a maxit=1
@@ -38,9 +38,6 @@ class SVRGCfg(NamedTuple):
     plus: bool
     batch: int = 1      # inner-loop minibatch size (reference is 1)
     block: bool = False  # uniform CONTIGUOUS block per inner step
-    fused: bool = False  # Pallas K-inner-steps-per-launch kernel
-    m_fused: int = 0     # static inner length for the fused path
-    fused_precision: str = "highest"  # MXU dots in fused kernels
 
 
 class SVRGState(NamedTuple):
@@ -53,11 +50,6 @@ class SVRGState(NamedTuple):
     key: jnp.ndarray
     it: jnp.ndarray
     status: jnp.ndarray
-    # fused mode only: anchor coefficient slab c(z_full) in (8, N/8)
-    # layout, refreshed with av in ONE pass over the oracle rows
-    # (ops.coeff_apply_all); None otherwise (a leafless pytree node --
-    # an array default here would commit a device buffer at import).
-    canch: object = None
 
     @property
     def solution(self):  # reference: solution(state) = state.z_full
@@ -66,15 +58,7 @@ class SVRGState(NamedTuple):
 
 @partial(jax.jit, static_argnames=("cfg",))
 def svrg_init(F, g, x0, gamma, m, key, cfg: SVRGCfg) -> SVRGState:
-    if cfg.fused:
-        from ciao_tpu.ops.fused_block import SLAB_ROWS
-
-        c = F.coeff_all(x0)
-        av = F.apply_all(c) / cfg.N
-        canch = c.reshape(SLAB_ROWS, cfg.N // SLAB_ROWS)
-    else:
-        av = F.grad_sum_all(x0) / cfg.N
-        canch = None
+    av = F.grad_sum_all(x0) / cfg.N
     return SVRGState(
         gamma=gamma,
         m=jnp.asarray(m, jnp.int32),
@@ -85,163 +69,27 @@ def svrg_init(F, g, x0, gamma, m, key, cfg: SVRGCfg) -> SVRGState:
         key=key,
         it=jnp.ones((), jnp.int32),
         status=jnp.zeros((), jnp.int32),
-        canch=canch,
     )
 
 
 def _svrg_inner_block(F, g, cfg: SVRGCfg, z_full, av, gamma, w, zsum, key,
-                      steps, k0=0):
+                      steps):
     """``steps`` inner iterations on uniformly-drawn CONTIGUOUS blocks
-    of ``cfg.batch`` samples (dynamic-slice DMAs, minibatch-averaged
+    of ``cfg.batch`` samples (dynamic slices, minibatch-averaged
     variance-reduced direction). The inner index is drawn by the
-    stateless (key, k0+k) schedule of saga._block_start — mirrored
-    exactly (and vectorized) by ``_gen_block_starts`` in the fused
-    kernel driver (sampling parity)."""
+    stateless (key, k) schedule of saga._block_start."""
     from ciao_tpu.solvers.saga import _block_start
 
     B = cfg.batch
 
     def inner(k, carry):
         w, zsum = carry
-        start = _block_start(key, k0 + k, cfg.N, B)
+        start = _block_start(key, k, cfg.N, B)
         d = F.grad_sum_diff_block(z_full, w, start, B) / B
         w = g.prox_only(w + gamma * (d - av), gamma)
         return w, zsum + w
 
-    w, zsum = jax.lax.fori_loop(0, steps, inner, (w, zsum))
-    return w, zsum, key
-
-
-def _svrg_step_fused(F, g, cfg: SVRGCfg, state: SVRGState,
-                     key) -> SVRGState:
-    """Fused outer iterate: the ``m_fused`` inner steps run as
-    K-steps-per-launch Pallas kernels streaming only the sampled blocks'
-    oracle rows (the anchor gradient is the carried coefficient slab
-    ``state.canch``, so each inner block costs ONE row pass), then the
-    anchor refresh computes c(z_full_next) AND the full gradient sum in
-    one further pass (ops.coeff_apply_all) — two full-A-equivalents per
-    epoch total, vs four for the unfused path."""
-    from ciao_tpu.ops.fused_block import (
-        SLAB_ROWS, _pick_tile, coeff_apply_all, oracle_scalar_consts,
-        rows_scale_row, rows_scale_slab, svrg_inner_chunked,
-    )
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    B, m = cfg.batch, cfg.m_fused
-    rows, offs = F.coeff_rows_data()
-    gamma, av = state.gamma, state.av
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    scalars = jnp.stack(
-        [
-            scale,
-            jnp.asarray(gamma, jnp.float32),
-            jnp.asarray(gamma * lam, jnp.float32),
-            jnp.asarray(1.0 / B, jnp.float32),
-            mode,
-            aux,
-        ]
-    )[None, :]
-    slab = (SLAB_ROWS, cfg.N // SLAB_ROWS)
-    # _gen_block_starts draws with the same stateless (key, inner-index)
-    # stream as _svrg_inner_block; SAGACfg/SVRGCfg share (N, batch).
-    w2, zs2, done = svrg_inner_chunked(
-        rows, offs.reshape(slab), state.canch, state.w[None, :],
-        state.z[None, :], av[None, :], scalars, B, m,
-        lambda k0, K: _gen_block_starts(key, k0, cfg, K),
-        precision=cfg.fused_precision, rs8=rows_scale_slab(F),
-    )
-    w, zsum = w2[0], zs2[0]
-    if done < m:
-        w, zsum, _ = _svrg_inner_block(
-            F, g, cfg, state.z_full, av, gamma, w, zsum, key, m - done,
-            k0=done,
-        )
-    z_full = zsum / jnp.asarray(m, zsum.dtype)
-    # anchor refresh: coefficients + gradient sum in one streaming pass
-    tile = _pick_tile(B, cfg.N, z_full.size, esize=rows.dtype.itemsize)
-    c1, gsum = coeff_apply_all(
-        rows, offs[None, :], z_full[None, :],
-        jnp.stack([scale, mode, aux])[None, :], tile,
-        precision=cfg.fused_precision,
-        rs1=rows_scale_row(F),
-    )
-    canch = c1.reshape(slab)
-    # state.key was already advanced by the caller (the sub-chain used
-    # for inner sampling is discarded, as in the stepwise paths)
-    return state._replace(
-        av=gsum[0] / cfg.N,
-        z=jnp.zeros_like(zsum),
-        z_full=z_full,
-        w=z_full,
-        it=state.it + 1,
-        canch=canch,
-    )
-
-
-def _svrg_step_fused_plus(F, g, cfg: SVRGCfg, state: SVRGState,
-                          key) -> SVRGState:
-    """Fused SVRG++ outer iterate (round 4 — the single-chip twin of
-    the DP ``_svrg_local_outer`` plus path): the DOUBLING inner length
-    m_t = m0·2^t runs a DYNAMIC number of K=64-step
-    ``svrg_coeff_multistep`` launches (a while_loop — each launch is
-    the same static kernel; only the count is dynamic) plus a dynamic
-    (< K) stepwise remainder on the same (key, k) start stream, then
-    the one-pass fused anchor refresh. Equal to the stepwise block path
-    to f32 rounding (pinned in tests/test_ops.py)."""
-    from ciao_tpu.ops.fused_block import (
-        SLAB_ROWS, _pick_tile, coeff_apply_all, oracle_scalar_consts,
-        rows_scale_row, rows_scale_slab, svrg_coeff_multistep,
-    )
-    from ciao_tpu.solvers.saga import _gen_block_starts
-
-    B = cfg.batch
-    rows, offs = F.coeff_rows_data()
-    gamma, av = state.gamma, state.av
-    scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    scalars = jnp.stack(
-        [
-            scale,
-            jnp.asarray(gamma, jnp.float32),
-            jnp.asarray(gamma * lam, jnp.float32),
-            jnp.asarray(1.0 / B, jnp.float32),
-            mode,
-            aux,
-        ]
-    )[None, :]
-    slab = (SLAB_ROWS, cfg.N // SLAB_ROWS)
-    b8 = offs.reshape(slab)
-    rs8 = rows_scale_slab(F)
-    K = 64
-    Lq = state.m // K
-
-    def launch(carry):
-        q, w2, zs2 = carry
-        starts = _gen_block_starts(key, q * K, cfg, K)
-        w2, zs2 = svrg_coeff_multistep(
-            rows, b8, state.canch, starts, w2, zs2, av[None, :],
-            scalars, B, precision=cfg.fused_precision, rs8=rs8,
-        )
-        return (q + 1, w2, zs2)
-
-    q, w2, zs2 = jax.lax.while_loop(
-        lambda c: c[0] < Lq, launch,
-        (jnp.zeros((), jnp.int32), state.w[None, :], state.z[None, :]),
-    )
-    w, zsum, _ = _svrg_inner_block(
-        F, g, cfg, state.z_full, av, gamma, w2[0], zs2[0], key,
-        state.m - Lq * K, k0=Lq * K,
-    )
-    z_full = zsum / state.m.astype(jnp.real(zsum).dtype)
-    tile = _pick_tile(B, cfg.N, z_full.size, esize=rows.dtype.itemsize)
-    c1, gsum = coeff_apply_all(
-        rows, offs[None, :], z_full[None, :],
-        jnp.stack([scale, mode, aux])[None, :], tile,
-        precision=cfg.fused_precision, rs1=rows_scale_row(F),
-    )
-    return state._replace(
-        m=state.m * 2, av=gsum[0] / cfg.N, z=jnp.zeros_like(zsum),
-        z_full=z_full, w=w, it=state.it + 1, canch=c1.reshape(slab),
-    )
+    return jax.lax.fori_loop(0, steps, inner, (w, zsum))
 
 
 def _svrg_step(F, g, cfg: SVRGCfg, state: SVRGState) -> SVRGState:
@@ -251,16 +99,8 @@ def _svrg_step(F, g, cfg: SVRGCfg, state: SVRGState) -> SVRGState:
     gamma, av = state.gamma, state.av
     key, sub = jax.random.split(state.key)
 
-    if cfg.fused:
-        # note: the fused paths manage their own anchor/key flow; the
-        # inner sampling stream (split-then-draw from ``sub``) is
-        # identical to the block path below.
-        if cfg.plus:
-            return _svrg_step_fused_plus(F, g, cfg,
-                                         state._replace(key=key), sub)
-        return _svrg_step_fused(F, g, cfg, state._replace(key=key), sub)
     if cfg.block:
-        w, zsum, _ = _svrg_inner_block(
+        w, zsum = _svrg_inner_block(
             F, g, cfg, state.z_full, av, gamma, state.w, state.z, sub,
             state.m,
         )
@@ -311,38 +151,6 @@ def svrg_step(F, g, state, cfg: SVRGCfg):
     return _svrg_step(F, g, cfg, state)
 
 
-def _warn_svrg_fallback(F, g, x0):
-    """One-time TPU warning when a block-sampling SVRG config lands on
-    the stepwise XLA path (VERDICT r3 weak #1 — the SAGA pattern)."""
-    from ciao_tpu import runtime
-
-    if not runtime.on_tpu() or jnp.iscomplexobj(x0):
-        return
-    from ciao_tpu.prox import NormL1
-
-    if x0.dtype != jnp.float32:
-        runtime.warn_fused_fallback(
-            "SVRG", f"the iterate dtype is {x0.dtype} and the fused "
-            "kernels are f32-only",
-            "use float32 iterates — precision belongs in the oracle "
-            "storage (with_storage) and the deep_solve polish stage",
-        )
-    elif not (hasattr(F, "coeff_rows_data")
-              and getattr(F, "supports_coeff", False)
-              and isinstance(g, (NormL1, Zero))):
-        runtime.warn_fused_fallback(
-            "SVRG", "the in-kernel prox covers NormL1/Zero only, and "
-            "the oracle must expose dense rows (coeff_rows_data)",
-            "use g=NormL1 or g=Zero and a dense-rows oracle",
-        )
-    else:
-        runtime.warn_fused_fallback(
-            "SVRG", "the kernel shape gates failed (n must be a "
-            "multiple of 128 lanes; N divisible by batch and tileable)",
-            "zero-pad n to the 128-lane boundary and adjust batch",
-        )
-
-
 @dataclasses.dataclass(frozen=True)
 class SVRG:
     """SVRG facade (reference ``SVRG.jl:24-44``). ``m`` defaults to N
@@ -355,8 +163,7 @@ class SVRG:
     m: Optional[int] = None
     plus: bool = False
     batch: int = 1       # inner-loop minibatch (beyond the reference)
-    block_sampling: bool = False  # contiguous inner blocks (TPU fast path)
-    fused_precision: str = "highest"  # "default" = bf16-mul/f32-acc MXU dots
+    block_sampling: bool = False  # contiguous inner blocks (slices)
     seed: int = 0
 
     def __post_init__(self):
@@ -364,7 +171,6 @@ class SVRG:
         assert self.maxit > 0
         assert self.freq > 0
         assert self.batch >= 1
-        assert self.fused_precision in ("highest", "default")
 
     def _effective_maxit(self):
         if self.plus and self.maxit > 25:
@@ -408,42 +214,9 @@ class SVRG:
             gamma = jnp.asarray(gam, rdt)
         if self.block_sampling and N % self.batch != 0:
             raise ValueError("SVRG block_sampling needs N divisible by batch")
-        fused = False
-        if (
-            self.block_sampling
-            and self.batch > 1
-            and x0.dtype == jnp.float32
-        ):
-            from ciao_tpu.ops import svrg_multistep_available
-            from ciao_tpu.prox import NormL1, Zero as _Zero
-
-            fused = (
-                svrg_multistep_available(N, x0.size, self.batch, x0.dtype)
-                and hasattr(F, "coeff_rows_data")
-                and getattr(F, "supports_coeff", False)
-                and isinstance(g, (NormL1, _Zero))
-            )
-            if not fused:
-                _warn_svrg_fallback(F, g, x0)
-        elif (self.block_sampling and not self.plus
-              and x0.dtype == jnp.float32 and self.batch == 1):
-            from ciao_tpu import runtime
-
-            if runtime.on_tpu() and not jnp.iscomplexobj(x0):
-                runtime.warn_fused_fallback(
-                    "SVRG", "batch=1 never takes the fused inner loop "
-                    "(one row per step starves the MXU)",
-                    "use a contiguous minibatch (batch >= 128 with "
-                    "block_sampling=True) — the minibatch estimator is "
-                    "the sanctioned variant (SVRG_basic.jl:74 TODO)",
-                )
         cfg = SVRGCfg(
             N=N, plus=self.plus, batch=self.batch,
-            block=self.block_sampling, fused=fused,
-            # SVRG++'s doubling m takes the dynamic-launch fused path
-            # (_svrg_step_fused_plus); m_fused serves plain SVRG only
-            m_fused=0 if self.plus else (m if fused else 0),
-            fused_precision=self.fused_precision,
+            block=self.block_sampling,
         )
         key = jax.random.PRNGKey(self.seed)
         init = lambda: svrg_init(F, g, x0, gamma, m, key, cfg)

@@ -1,21 +1,19 @@
 """Deep accuracy as one call: ``ciao_tpu.deep_solve``.
 
 Every f32 stochastic solver floors at rel ~√N·eps — the full-gradient
-REDUCTION's rounding, not the iterate's resolution (BASELINE.md).
-``deep_solve`` packages the measured TPU answer: staged/streamed fused
-SAGA to that plateau, then compensated-gradient monotone FISTA with an
-automatic curvature-bound stepsize (η = 0.9/λ̂ from
-``ciao_tpu.power_lmax`` — loss-generic through the margin-curvature
-protocol). Measured on the 10.49M×100 planted BASELINE lasso: rel
-7.6e-9 in ~1.5 s end-to-end on one v5e chip, where the f64-on-CPU
-reference would take hours for the same row reads.
+REDUCTION's rounding, not the iterate's resolution. ``deep_solve``
+packages the answer: staged block SAGA to that plateau, then
+compensated-gradient monotone FISTA with an automatic curvature-bound
+stepsize (η = 0.9/λ̂ from ``ciao_tpu.power_lmax`` — loss-generic
+through the margin-curvature protocol). The run asserts rel ≤ 1e-6;
+chip_smoke.py's ``deep`` phase runs it on the GPU.
 
-    python examples/deep_accuracy.py          # 1M×128 on the real chip
+    python examples/deep_accuracy.py          # 1M×128
     python examples/deep_accuracy.py small    # CI smoke shapes
 
 Reference anchor: the reference's accuracy comes from f64 end-to-end
-(``src/algorithms/Finito/Finito_basic.jl:14``); this is the TPU route
-to the same numbers at TPU speed.
+(``src/algorithms/Finito/Finito_basic.jl:14``); this is the f32 route
+to the same numbers.
 """
 
 from __future__ import annotations
@@ -54,4 +52,7 @@ def main(N=1024 * 1024, n=128, batch=8_192, small=False):
 
 
 if __name__ == "__main__":
+    from ciao_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache(__file__)
     main(small="small" in sys.argv[1:])

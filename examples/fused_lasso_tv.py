@@ -13,7 +13,7 @@ on the identified jump set (compensated segment Gram + iterative
 refinement + a KKT dual certificate) — and returns a point whose flat
 runs are exactly flat in f32, at rel ~1e-10.
 
-    python examples/fused_lasso_tv.py          # 65536×512 (chip-sized)
+    python examples/fused_lasso_tv.py          # 65536×512
     python examples/fused_lasso_tv.py small    # CI smoke shapes
 
 Reference anchor: none (beyond-reference capability); the planted
@@ -62,4 +62,7 @@ def main(N=65_536, n=512, jumps=12, small=False):
 
 
 if __name__ == "__main__":
+    from ciao_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache(__file__)
     main(small="small" in sys.argv[1:])

@@ -1,11 +1,12 @@
 """Multi-host data-parallel solve (template).
 
-The reference is single-process (SURVEY.md §2.3); this is the ciao-tpu
-recipe for a multi-host TPU slice. Run ONE copy of this script per host
-(e.g. via `gcloud compute tpus tpu-vm ssh --worker=all`); JAX wires the
-hosts into one global device mesh and the DP solvers keep all
-cross-device traffic to one x-sized psum per step, riding ICI within a
-slice and DCN across slices.
+The reference is single-process (SURVEY.md §2.3); this is the ciao_tpu
+recipe for several GPU hosts. Run ONE copy of this script per host with
+CIAO_MULTIHOST=1 and the cluster named in the environment
+(CIAO_COORDINATOR=host:port, CIAO_NUM_PROCESSES, CIAO_PROCESS_ID); JAX
+wires the hosts into one global device mesh and the DP solvers keep all
+cross-device traffic to one x-sized psum per step (NVLink within a
+host, the network across hosts).
 
 On a single host this script degrades gracefully to all local devices
 (e.g. the 8-device virtual CPU mesh used in CI:
@@ -24,8 +25,11 @@ import os
 import jax
 
 if os.environ.get("CIAO_MULTIHOST"):
-    # coordinator address/process id come from the TPU environment
-    jax.distributed.initialize()
+    jax.distributed.initialize(
+        coordinator_address=os.environ["CIAO_COORDINATOR"],
+        num_processes=int(os.environ["CIAO_NUM_PROCESSES"]),
+        process_id=int(os.environ["CIAO_PROCESS_ID"]),
+    )
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -59,9 +63,9 @@ def main():
               f"iters={iters} suboptimality={gap:.3e}")
         assert gap < 1e-4
 
-    # Across-DCN recipe: amortize the collective with local-update
-    # rounds — K fused local steps per round, ONE psum per round (the
-    # per-step psum would ride DCN every step). Same knobs exist for
+    # Across-host recipe: amortize the collective with local-update
+    # rounds — K local steps per round, ONE psum per round (the
+    # per-step psum would cross the network every step). Same knobs exist for
     # every family (DPFinito(local_steps=K), DPFinito(LFinito=True,
     # local_sweep=True), DPSVRG(local_inner=True), DPProshi).
     solver = DPSAGA(mesh=mesh, batch=D * 8, block_sampling=True,
@@ -75,4 +79,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from ciao_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache(__file__)
     main()

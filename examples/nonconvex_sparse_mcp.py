@@ -11,7 +11,7 @@ README.md:6-12). The script plants a sparse signal, then shows
     least-squares refit;
   * SARAH is the right solver here: its recursive estimator carries the
     SPIDER-class nonconvex convergence guarantee, and each inner step
-    is one fused two-point row read (grad_sum_diff_block).
+    is one two-point row read (grad_sum_diff_block).
 
 Run on CPU (CI mesh):
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -78,4 +78,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from ciao_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache(__file__)
     main()

@@ -3,9 +3,9 @@
 Beyond the reference's surface entirely: ProximalOperators.jl has no
 Poisson likelihood, so the reference cannot express count regression.
 Here it rides the same machinery as every other rank-1 oracle — the
-clamped exp link is the in-kernel MODE_POISSON coefficient formula, so
-on TPU the fused SAGA/Katyusha steps run at the least-squares byte
-floors (PERF.md round-3 table). The script plants a sparse log-linear
+clamped exp link is the MODE_POISSON coefficient formula, so the
+SAGA/Katyusha steps move the same bytes as least squares. The script
+plants a sparse log-linear
 model, draws Poisson counts, then shows
 
   * L1-regularized Poisson GLM (Katyusha) recovers the planted support
@@ -76,4 +76,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from ciao_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache(__file__)
     main()

@@ -3,11 +3,9 @@
 Both are BEYOND the reference's surface (its oracle set has no robust
 loss; its solver set has no accelerated method) but ride the same
 machinery: rank-1 coefficients, contiguous-block streaming, DP
-sharding — and, on TPU, the fused Pallas path: the Huber clip is the
-in-kernel MODE_HUBER coefficient formula (δ rides the kernels' aux
-scalar), so this solve runs at the least-squares fused rates
-(PERF.md round-2 table). The script corrupts 10% of a planted regression's targets
-with gross outliers, then shows
+sharding — the Huber clip is the MODE_HUBER coefficient formula, so
+this solve moves the same bytes as least squares. The script corrupts
+10% of a planted regression's targets with gross outliers, then shows
 
   * plain least squares (the closed form) is dragged off the signal;
   * Huber + Katyusha recovers it, in a handful of accelerated epochs;
@@ -65,4 +63,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from ciao_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache(__file__)
     main()

@@ -1,15 +1,15 @@
-"""rcv1-style sparse L1-logistic on one chip: the hybrid hot/cold layout.
+"""rcv1-style sparse L1-logistic on one card: the hybrid hot/cold layout.
 
 Real doc×term matrices are power-law: a handful of columns carry most
 of the nonzeros. ``HybridSparseLogistic`` stores those columns dense
-(an (N, D) block riding the MXU/bandwidth fast paths) and only the tail
-in ELL, which pays the chip's ~125 M elem/s scalar routing bound
-(PERF.md "Sparse routing bound"). The logistic coefficients
+(an (N, D) block on the dense matmul paths) and only the tail in ELL,
+whose gathers and scatters cost far more per element than a dense row
+stream. The logistic coefficients
 c_i = −y_i σ(−y_i ⟨a_i, x⟩) keep every gradient rank-1, so the
 coefficient-table SAGA and the accelerated Katyusha run unchanged on
 the sparse operator.
 
-    python examples/sparse_logistic.py            # real TPU defaults
+    python examples/sparse_logistic.py            # full-size defaults
     python examples/sparse_logistic.py small      # tiny CPU-mesh smoke
 
 Problem: synthetic power-law features (D_hot dense columns at ~60 %
@@ -35,12 +35,8 @@ def build(N, n, d_hot, k_tail, seed=0):
     materialized — the point of the layout)."""
     rng = np.random.default_rng(seed)
     hot = rng.choice(n, size=d_hot, replace=False).astype(np.int32)
-    d_pad = max(128, -(-d_hot // 128) * 128)
-    hot_cols = np.zeros(d_pad, np.int32)
-    hot_cols[:d_hot] = hot
-    A_hot = rng.standard_normal((N, d_pad)).astype(np.float32)
-    A_hot[:, d_hot:] = 0.0
-    A_hot *= (rng.random((N, d_pad)) < 0.6)  # ~60 % dense-block density
+    A_hot = rng.standard_normal((N, d_hot)).astype(np.float32)
+    A_hot *= (rng.random((N, d_hot)) < 0.6)  # ~60 % dense-block density
     cold = np.setdiff1d(np.arange(n, dtype=np.int32), hot)
     idx = rng.choice(cold, size=(N, k_tail)).astype(np.int32)
     val = rng.standard_normal((N, k_tail)).astype(np.float32)
@@ -54,7 +50,7 @@ def build(N, n, d_hot, k_tail, seed=0):
     y[flip] = -y[flip]
 
     F = HybridSparseLogistic(
-        A_hot=jnp.asarray(A_hot), hot_cols=jnp.asarray(hot_cols),
+        A_hot=jnp.asarray(A_hot), hot_cols=jnp.asarray(hot),
         idx=jnp.asarray(idx), val=jnp.asarray(val), y=jnp.asarray(y),
         n_dim=n,
     )
@@ -115,4 +111,7 @@ def main(N=1_048_576, n=65_536, d_hot=256, k_tail=8, B=4_096, small=False):
 
 
 if __name__ == "__main__":
+    from ciao_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache(__file__)
     main(small="small" in sys.argv[1:])

@@ -1,15 +1,14 @@
 """2-D total-variation denoising — isotropic (ROF) vs anisotropic —
-with Chambolle-Pock on one chip.
+with Chambolle-Pock on one card.
 
 The h(Kx) capability class in its classic image form: the quadratic
 data term is the prox'd g (`SqrDistPoint`), the TV lives in the dual
 through a stencil linear map. Isotropic TV pairs the horizontal and
 vertical difference fields pixelwise under `GroupNormL21` (the
 rotation-fair Rudin-Osher-Fatemi model); anisotropic stacks them under
-a plain ℓ1. On chip a 1024×1024 image runs ~1000 primal-dual
-iterations/second (PERF.md).
+a plain ℓ1.
 
-    python examples/tv_denoise_2d.py          # 512×512 (chip-sized)
+    python examples/tv_denoise_2d.py          # 512×512
     python examples/tv_denoise_2d.py small    # CI smoke shape
 
 Reference anchor: none (the prox-of-g-only reference cannot express
@@ -63,4 +62,7 @@ def main(H=512, W=512, lam=0.3, maxit=4000, small=False):
 
 
 if __name__ == "__main__":
+    from ciao_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache(__file__)
     main(small="small" in sys.argv[1:])

@@ -67,7 +67,7 @@ def main():
     )
     results["lockstep"] = np.asarray(jax.device_get(x))
 
-    # local-update mode: K fused-round local steps per collective
+    # local-update mode: K local steps per collective
     x, steps = DPSAGA(
         mesh=mesh, batch=D, block_sampling=True,
         local_steps=8, rebase_every=16, maxit=50,

@@ -220,43 +220,6 @@ def test_checkpoint_async_orbax(tmp_path, lasso):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_gen_block_ids_matches_next_block_id():
-    """The vectorized K-block generator must reproduce K sequential
-    next_block_id calls bit-for-bit (ids, pos, order, and key chain),
-    including epoch boundaries mid-window."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from ciao_tpu.sampling import (
-        Sweep,
-        gen_block_ids,
-        init_sweep,
-        next_block_id,
-    )
-
-    N, B = 96, 8          # d = 12 blocks
-    for sweeping in (Sweep.CYCLIC, Sweep.SHUFFLED):
-        sweep0 = init_sweep(jax.random.PRNGKey(3), N, B, sweeping)
-        # sequential reference over several windows with awkward sizes
-        seq_ids, sw = [], sweep0
-        for _ in range(31):
-            blk, sw = next_block_id(sw, N, B, sweeping)
-            seq_ids.append(int(blk))
-        vec_ids, swv = [], sweep0
-        for k in (5, 12, 14):
-            ids, swv = gen_block_ids(swv, k, N, B, sweeping)
-            vec_ids.extend(np.asarray(ids).tolist())
-        assert vec_ids == seq_ids[: len(vec_ids)], sweeping
-        # state parity after 31 steps total
-        ids, swv = gen_block_ids(swv, 31 - len(vec_ids), N, B, sweeping)
-        vec_ids.extend(np.asarray(ids).tolist())
-        assert vec_ids == seq_ids, sweeping
-        assert int(swv.pos) == int(sw.pos), sweeping
-        assert np.array_equal(np.asarray(swv.order), np.asarray(sw.order))
-        assert np.array_equal(np.asarray(swv.key), np.asarray(sw.key))
-
-
 def test_staged_saga_reaches_f32_floor_with_switch():
     """staged_saga (the PERF.md int8→f32 production schedule as an
     API): the coarse stage plateaus, the switch rebases, and the f32

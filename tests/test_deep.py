@@ -59,7 +59,7 @@ def _oracles(data):
 
 def test_chunked_grad_is_loss_generic(data):
     """grad_mean_chunked vs AUTODIFF of the mean objective, for every
-    GLM the fused paths advertise — a sign error in any oracle's
+    coefficient GLM oracle — a sign error in any oracle's
     coeff_from_margin second use fails here (VERDICT r3 weak #4)."""
     rng = np.random.default_rng(1)
     x = jnp.asarray(0.1 * rng.standard_normal(n), jnp.float32)

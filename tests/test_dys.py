@@ -135,36 +135,6 @@ def test_dys_iterator_invariants(lasso):
         ciao_tpu.DavisYin(maxit=2)(x0(prob), F=F, g=g, h=h, N=N)
 
 
-def test_dys_fused_full_pass_matches_xla():
-    """The fused one-pass gradient read must reproduce the XLA step."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.solvers.dys import DYSCfg, dys_init, dys_run
-
-    Np, npix = 512, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    h = IndBox(lo=-1.0, hi=1.0)
-    gamma = jnp.asarray(1.0 / np.mean(prob.L), jnp.float32)
-    lam = jnp.ones((), jnp.float32)
-    z0 = jnp.zeros(npix, jnp.float32)
-    cfg = DYSCfg(N=Np)
-    st_x = dys_run(F, g, h, dys_init(F, g, h, z0, gamma, lam, cfg), cfg, 20)
-    cfg_f = cfg._replace(fused=True)
-    with pltpu.force_tpu_interpret_mode():
-        st_f = dys_run(F, g, h, dys_init(F, g, h, z0, gamma, lam, cfg_f),
-                       cfg_f, 20)
-    np.testing.assert_allclose(np.asarray(st_f.xg), np.asarray(st_x.xg),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(st_f.z), np.asarray(st_x.z),
-                               rtol=1e-4, atol=1e-6)
-
-
 def test_tp_davis_yin_matches_single_chip(lasso):
     """TPDavisYin on the (4,2) ("data","model") mesh: deterministic
     method, separable proxes — the 2-D-sharded trajectory must equal

@@ -2,9 +2,9 @@
 #6: the examples are asserting end-to-end runs and must actually run in
 the suite — the multihost recipe's logic already executes as
 tests/test_multihost.py). Perf-oriented examples run their ``small``
-smoke shapes through the identical code path (fused kernels
-backend-gate to XLA on CPU); their asserts — planted-support recovery,
-robust-regression error bounds, objective decrease — all bite."""
+smoke shapes through the identical code path; their asserts —
+planted-support recovery, robust-regression error bounds, objective
+decrease — all bite."""
 
 import importlib.util
 import pathlib

@@ -125,36 +125,3 @@ def test_tp_fista_matches_single_chip():
         TPFISTA(mesh=mesh2)(z0, F=F, g=NormL2(lam=jnp.asarray(1.0)),
                             L=prob.L, N=N)
 
-
-def test_fb_fused_full_pass_matches_xla():
-    """The one-pass fused full-gradient step (ops.coeff_apply_all) must
-    reproduce the XLA grad_sum_all step — both ISTA and FISTA."""
-    import jax
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.oracles import LeastSquaresRows
-    from ciao_tpu.prox import NormL1
-    from ciao_tpu.solvers.fb import FBCfg, fb_init, fb_run
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix = 512, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    gamma = jnp.asarray(1.0 / np.mean(prob.L), jnp.float32)
-    x0v = jnp.zeros(npix, jnp.float32)
-    for fast in (False, True):
-        cfg = FBCfg(N=Np, fast=fast)
-        st_x = fb_run(F, g, fb_init(F, g, x0v, gamma, cfg), cfg, 20)
-        cfg_f = cfg._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_f = fb_run(F, g, fb_init(F, g, x0v, gamma, cfg_f), cfg_f, 20)
-        np.testing.assert_allclose(np.asarray(st_f.x), np.asarray(st_x.x),
-                                   rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(st_f.y), np.asarray(st_x.y),
-                                   rtol=1e-4, atol=1e-6)

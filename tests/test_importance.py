@@ -121,18 +121,14 @@ def test_importance_guards_and_uniform_L():
 
 def test_direct_cfg_importance_fused_or_sag_rejected():
     """SAGACfg is also constructed directly (not just via the facade);
-    the step itself must reject importance+fused / importance+sag, whose
-    branches ignore the 1/(d·q_j) unbiasedness weight (would silently
+    the step itself must reject importance+sag, whose average-first
+    order ignores the 1/(d·q_j) unbiasedness weight (would silently
     bias the direction)."""
     from ciao_tpu.solvers.saga import SAGACfg, _saga_step
 
-    for bad in (
-        SAGACfg(N=8, sag=False, batch=2, block=True, fused=True,
-                importance=True),
-        SAGACfg(N=8, sag=True, batch=2, block=True, importance=True),
-    ):
-        with pytest.raises(ValueError, match="importance"):
-            _saga_step(None, None, bad, None)
+    bad = SAGACfg(N=8, sag=True, batch=2, block=True, importance=True)
+    with pytest.raises(ValueError, match="importance"):
+        _saga_step(None, None, bad, None)
 
 
 def test_importance_cdf_built_in_float64():
@@ -160,202 +156,6 @@ def test_importance_cdf_built_in_float64():
                                1.0 / (d * q), rtol=1e-5)
 
 
-def _pi_cdf(qt, K):
-    """π-scale CDF for the systematic istrat schedule: cumsum(K·q̃),
-    last entry snapped to exactly K (the facade's construction)."""
-    pic = np.cumsum(K * np.asarray(qt, np.float64))
-    pic *= K / pic[-1]
-    pic[-1] = K
-    return jnp.asarray(pic, jnp.float32)
-
-
-def test_stratified_clipped_visit_distribution():
-    """The istrat schedule's empirical visit frequency equals the
-    CLIPPED distribution q̃ (max mass 1/K), not the raw q — truncated
-    importance sampling with stratified windows (round 4)."""
-    from ciao_tpu.sampling import clip_block_distribution
-    from ciao_tpu.solvers.saga import SAGACfg, SAGAState, _block_choice
-
-    Np, B, K = 1024, 8, 16
-    prob = make_lasso(N=Np, n=64, p=6, seed=1)
-    d = Np // B
-    Lblk = np.max(np.asarray(prob.L).reshape(d, B), axis=1)
-    qt, _ = clip_block_distribution(Lblk / Lblk.sum(), K)
-    cfg = SAGACfg(N=Np, sag=False, batch=B, block=True, importance=True,
-                  istrat=True, iwin=K)
-    st = SAGAState(
-        s=None, gamma=None, av=None, z=None, key=jax.random.PRNGKey(0),
-        it=jnp.zeros((), jnp.int32), status=None,
-        qcum=_pi_cdf(qt, K), qinv=jnp.asarray(1.0 / (d * qt)),
-    )
-    draws = 50048  # multiple of K: whole windows
-    f = jax.jit(jax.vmap(lambda it: _block_choice(cfg, st._replace(it=it))[0]))
-    starts = np.asarray(f(jnp.arange(draws, dtype=jnp.int32)))
-    emp = np.bincount(starts // B, minlength=d) / draws
-    assert np.max(np.abs(emp - qt)) < 0.15 * qt.max()
-    # systematic πps: EVERY window's draws are distinct by construction
-    win = (starts // B).reshape(-1, K)
-    full = np.mean([len(np.unique(w)) == K for w in win])
-    assert full == 1.0, full
-
-
-def test_stratified_streamed_matches_stepwise():
-    """Streamed-kernel importance at the stratified schedule: the
-    window-aligned launch loop (clamp on straddles, stepwise re-align)
-    must equal the stepwise istrat path bit-for-bit in stream terms —
-    including non-aligned starts and a remainder."""
-    from ciao_tpu.sampling import clip_block_distribution
-    from ciao_tpu.solvers.saga import SAGACfg, saga_init, saga_run
-
-    Np, npix, Bp, K = 8192, 128, 128, 16
-    prob = make_lasso(N=Np, n=npix, p=4, seed=0, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, np.float32), b=jnp.asarray(prob.b, np.float32),
-        scale=jnp.asarray(float(Np), np.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, np.float32))
-    d = Np // Bp
-    Lblk = np.max(np.asarray(prob.L, np.float64).reshape(d, Bp), axis=1)
-    qt, _ = clip_block_distribution(Lblk / Lblk.sum(), K)
-    gamma = jnp.asarray(1.0 / (3.0 * np.max(Lblk / (d * qt))), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0 = jnp.zeros(npix, jnp.float32)
-    cfg_step = SAGACfg(N=Np, sag=False, batch=Bp, block=True, coeff=True,
-                       importance=True, istrat=True, iwin=K)
-    sti = saga_init(F, g, x0, gamma, key, cfg_step)._replace(
-        qcum=_pi_cdf(qt, K),
-        qinv=jnp.asarray(1.0 / (d * qt), jnp.float32),
-    )
-    for steps in (77, 96):
-        st_step = saga_run(F, g, sti, cfg_step, steps)
-        cfg_f = cfg_step._replace(fused_stream=True)
-        st_f = saga_run(F, g, sti, cfg_f, steps)
-        assert int(st_f.it) == int(st_step.it) == steps + 1
-        np.testing.assert_allclose(np.asarray(st_f.z), np.asarray(st_step.z),
-                                   rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(st_f.s), np.asarray(st_step.s),
-                                   rtol=1e-3, atol=1e-3)
-        np.testing.assert_allclose(np.asarray(st_f.av),
-                                   np.asarray(st_step.av),
-                                   rtol=1e-3, atol=1e-4)
-
-
-def test_facade_enables_streamed_importance(monkeypatch):
-    """At the streamed scale the facade must keep importance ON the
-    fused path (VERDICT r3 #3 silent-cliff case): fused_stream=True
-    with the stratified-clipped schedule, qinv bounded by d/K, and the
-    effective-smoothness stepsize."""
-    from ciao_tpu import runtime
-
-    monkeypatch.setattr(runtime, "on_tpu", lambda: True)
-    runtime.reset_fallback_warnings()
-    # N chosen so the resident-slab gate closes (N not a multiple of
-    # 8·B) while the streamed gate opens (N % B == 0, d = 65 ≥ 64) —
-    # at the true streamed scale (N > 1M) the slab closes on size
-    Np, npix, B = 8320, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=0, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, np.float32), b=jnp.asarray(prob.b, np.float32),
-        scale=jnp.asarray(float(Np), np.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, np.float32))
-    solver = ciao_tpu.SAGA(maxit=1, block_sampling=True, batch=B,
-                           importance_sampling=True)
-    import warnings as _w
-
-    with _w.catch_warnings():
-        _w.simplefilter("error")   # no fallback warning: the path IS fused
-        _, _, _, cfg, init = solver._setup(
-            jnp.zeros(npix, jnp.float32), F, g, L=prob.L, N=Np)
-    assert cfg.fused_stream and cfg.istrat
-    assert cfg.iwin == min(64, Np // B)
-    st = init()
-    # the clip property on the π-scale CDF: every inclusion probability
-    # π_j = Δqcum ≤ 1 (that's what makes same-window draws distinct)
-    pi = np.diff(np.concatenate([[0.0], np.asarray(st.qcum, np.float64)]))
-    assert abs(np.asarray(st.qcum, np.float64)[-1] - cfg.iwin) < 1e-6
-    assert pi.max() <= 1.0 + 1e-6
-
-
-def test_stratified_importance_still_beats_uniform():
-    """Clipping + stratification must preserve the importance win on
-    the ill-conditioned generator (matched 16k-step budget)."""
-    from ciao_tpu.sampling import clip_block_distribution
-    from ciao_tpu.solvers.saga import SAGACfg, saga_init, saga_run
-
-    Np, npx, B, K = 1024, 64, 8, 16
-    prob = make_lasso(N=Np, n=npx, p=6, seed=1, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, np.float32), b=jnp.asarray(prob.b, np.float32),
-        scale=jnp.asarray(float(Np), np.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, np.float32))
-    z0 = jnp.zeros(npx, jnp.float32)
-    key = jax.random.PRNGKey(0)
-    steps = 16000
-    d = Np // B
-    Lblk = np.max(np.asarray(prob.L, np.float64).reshape(d, B), axis=1)
-    qt, nclip = clip_block_distribution(Lblk / Lblk.sum(), K)
-    gam_u = jnp.asarray(1.0 / (3.0 * np.max(prob.L)), jnp.float32)
-    cfg_u = SAGACfg(N=Np, sag=False, batch=B, block=True, coeff=True)
-    st_u = saga_run(F, g, saga_init(F, g, z0, gam_u, key, cfg_u), cfg_u,
-                    steps)
-    gam_i = jnp.asarray(1.0 / (3.0 * np.max(Lblk / (d * qt))), jnp.float32)
-    cfg_i = cfg_u._replace(importance=True, istrat=True, iwin=K)
-    st_i = saga_run(
-        F, g,
-        saga_init(F, g, z0, gam_i, key, cfg_i)._replace(
-            qcum=_pi_cdf(qt, K),
-            qinv=jnp.asarray(1.0 / (d * qt), jnp.float32),
-        ),
-        cfg_i, steps)
-    gap_u = prob.cost(np.asarray(st_u.z)) - prob.f_star
-    gap_i = prob.cost(np.asarray(st_i.z)) - prob.f_star
-    assert gap_i * 50 < gap_u, (gap_i, gap_u)
-
-
-def test_importance_fused_multistep_matches_stepwise():
-    """Importance sampling through the fused K-step kernel: the
-    inverse-CDF draws and the 1/(d·q_j) direction weights ride the
-    scalar-prefetch stream (_gen_importance_draws ≡ K stepwise
-    _block_choice calls), and the fused trajectory must equal the
-    stepwise importance path — including the stepwise remainder."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.solvers.saga import SAGACfg, saga_init, saga_run
-
-    Np, npix, B = 1024, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=0, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, np.float32), b=jnp.asarray(prob.b, np.float32),
-        scale=jnp.asarray(float(Np), np.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, np.float32))
-    solver = ciao_tpu.SAGA(maxit=1, block_sampling=True, batch=B,
-                           importance_sampling=True)
-    x0, F2, g2, cfg, init = solver._setup(jnp.zeros(npix, jnp.float32), F, g,
-                                          L=prob.L, N=Np)
-    st0 = init()
-    assert cfg.coeff  # rank-1 oracle → coefficient table
-    for steps in (24, 137):
-        cfg_step = cfg._replace(fused=False)
-        st_s = saga_run(F2, g2, st0, cfg_step, steps)
-        cfg_fused = cfg._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_f = saga_run(F2, g2, st0, cfg_fused, steps)
-        assert int(st_f.it) == int(st_s.it)
-        np.testing.assert_allclose(np.asarray(st_f.z), np.asarray(st_s.z),
-                                   rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(st_f.s), np.asarray(st_s.s),
-                                   rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(st_f.av), np.asarray(st_s.av),
-                                   rtol=1e-3, atol=1e-5)
-
-
-# ---------------------------------------------------------------------------
-# Round 5 (VERDICT r4 #6): importance for the OTHER streamed families
-# ---------------------------------------------------------------------------
-
 def _powerlaw_lsq(Np=1024, npx=64, seed=1, span=1.5):
     """Consistent least-squares with log-uniform row scales 1..10^span:
     the wide block-L spread the reference generator lacks (~1.4x)."""
@@ -366,67 +166,6 @@ def _powerlaw_lsq(Np=1024, npx=64, seed=1, span=1.5):
     b = A @ x_true
     L = Np * (A * A).sum(axis=1)
     return A, b, L
-
-
-def _finito_ips_schedule(L, N, B, rdt=jnp.float32):
-    """The Finito facade's importance-schedule construction (kept in
-    sync with Finito._setup — the SAGA recipe verbatim)."""
-    from ciao_tpu.sampling import clip_block_distribution
-
-    d = N // B
-    Lblk = np.max(np.asarray(L, np.float64).reshape(d, B), axis=1)
-    q = Lblk / Lblk.sum()
-    iwin = min(64, d)
-    q, _ = clip_block_distribution(q, iwin)
-    qcum = np.cumsum(iwin * q)
-    qcum *= iwin / qcum[-1]
-    qcum[-1] = iwin
-    return jnp.asarray(qcum, rdt), jnp.asarray(1.0 / (d * q), rdt), iwin
-
-
-def test_finito_importance_fused_paths_match_stepwise():
-    """Importance draws through BOTH fused Finito-coeff kernels
-    (resident slab + streamed window-aligned launches) reproduce the
-    stepwise systematic-πps stream exactly."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.prox import Zero
-    from ciao_tpu.solvers.finito import (
-        FinitoCfg, finito_coeff_init, finito_run,
-    )
-
-    Np, npx, Bp = 8192, 128, 128   # d = 64 blocks
-    A, b, L = _powerlaw_lsq(Np, npx, seed=3, span=1.0)
-    F = LeastSquaresRows(
-        A=jnp.asarray(A, jnp.float32), b=jnp.asarray(b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32))
-    qcum, qinv, iwin = _finito_ips_schedule(L, Np, Bp)
-    gamma = jnp.asarray(0.999 * Np / np.asarray(L, np.float64),
-                        jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0 = jnp.zeros(npx, jnp.float32)
-    base = FinitoCfg(N=Np, batch=Bp, sweeping=1, alpha=0.999,
-                     importance=True, istrat=True, iwin=iwin)
-    states = {}
-    for tag, cfg in (("stepwise", base),
-                     ("slab", base._replace(fused=True)),
-                     ("stream", base._replace(fused_stream=True))):
-        st = finito_coeff_init(F, Zero(), x0, gamma, key, cfg)._replace(
-            qcum=qcum, qinv=qinv)
-        with pltpu.force_tpu_interpret_mode():
-            states[tag] = finito_run(F, Zero(), st, cfg, "basic_coeff",
-                                     193)
-    for tag in ("slab", "stream"):
-        assert int(states[tag].it) == int(states["stepwise"].it) == 194
-        np.testing.assert_allclose(
-            np.asarray(states[tag].z), np.asarray(states["stepwise"].z),
-            rtol=1e-4, atol=1e-6, err_msg=tag)
-        np.testing.assert_allclose(
-            np.asarray(states[tag].c), np.asarray(states["stepwise"].c),
-            rtol=1e-3,
-            atol=max(1e-3,
-                     1e-4 * float(np.abs(states["stepwise"].c).max())),
-            err_msg=tag)
 
 
 def test_finito_importance_facade_converges_and_guards():

@@ -10,7 +10,6 @@ streaming-API invariants every solver obeys, (d) dtype coverage, and
 8-device CPU mesh.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,7 +47,7 @@ def test_lsvrg_converges(lasso):
 
 
 def test_lsvrg_block_and_minibatch(lasso):
-    """Contiguous-block sampling (TPU fast path) and minibatch > 1
+    """Contiguous-block sampling (slices, no gather) and minibatch > 1
     converge; block vs iid sampling genuinely differ; misconfiguration
     raises."""
     prob, F, g = lasso
@@ -314,106 +313,3 @@ def test_tp_loopless_pair_converges_and_shards():
             z0, F=F2, g=NormNuclear(lam=0.1), L=prob.L, N=N
         )
 
-
-def _fused_equality_problem():
-    import numpy as np
-
-    Np, npix, Bp = 1024, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    return prob, F, g, Np, npix, Bp
-
-
-def test_lsvrg_fused_coin_aware_matches_stepwise():
-    """The coin-aware fused L-SVRG driver (launches clamped at the
-    first stateless Bernoulli flip, in-kernel masking past it, anchor
-    refresh between launches) must reproduce the stepwise path: same
-    index stream, same coin stream, same math. p = 0.08 over 80 steps
-    crosses several flips at varying in-launch positions (launch K=32),
-    and 7 steps exercises the sub-launch tail."""
-    import jax
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.solvers.lsvrg import LSVRGCfg, lsvrg_init, lsvrg_run
-
-    prob, F, g, Np, npix, Bp = _fused_equality_problem()
-    gamma = jnp.asarray(1.0 / (6.0 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0v = jnp.zeros(npix, jnp.float32)
-    for steps, p in ((80, 0.08), (40, 0.0), (38, 0.5)):
-        pj = jnp.asarray(p, jnp.float32)
-        cfg_step = LSVRGCfg(N=Np, batch=Bp, block=True)
-        st_step = lsvrg_run(
-            F, g, lsvrg_init(F, g, x0v, gamma, pj, key, cfg_step),
-            cfg_step, steps,
-        )
-        cfg_fused = cfg_step._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_fused = lsvrg_run(
-                F, g, lsvrg_init(F, g, x0v, gamma, pj, key, cfg_fused),
-                cfg_fused, steps,
-            )
-        assert int(st_fused.it) == int(st_step.it)
-        for fld in ("w", "z"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(st_fused, fld)),
-                np.asarray(getattr(st_step, fld)),
-                rtol=1e-4, atol=1e-6, err_msg=f"{fld} steps={steps} p={p}",
-            )
-        np.testing.assert_allclose(np.asarray(st_fused.av),
-                                   np.asarray(st_step.av),
-                                   rtol=1e-3, atol=1e-4)
-
-
-def test_lkatyusha_fused_coin_aware_matches_stepwise():
-    """Same coin-aware fused-vs-stepwise pin for L-Katyusha (the
-    accelerated kernel: in-VMEM y/z sequences, in-kernel eval point and
-    proximal z-update, anchor jump to the flip step's pre-update y)."""
-    import jax
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.solvers.lsvrg import (
-        LKatyushaCfg, lkatyusha_init, lkatyusha_run,
-    )
-
-    prob, F, g, Np, npix, Bp = _fused_equality_problem()
-    Lm = jnp.asarray(np.max(prob.L), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0v = jnp.zeros(npix, jnp.float32)
-    th2 = jnp.asarray(0.5, jnp.float32)
-    for steps, p, sig in ((80, 0.08, 0.0), (38, 0.5, 0.01)):
-        pj = jnp.asarray(p, jnp.float32)
-        sigj = jnp.asarray(sig, jnp.float32)
-        th1 = jnp.asarray(1.0 / 3.0, jnp.float32)
-        cfg_step = LKatyushaCfg(N=Np, batch=Bp, block=True)
-        st_step = lkatyusha_run(
-            F, g,
-            lkatyusha_init(F, g, x0v, Lm, sigj, th1, th2, pj, key,
-                           cfg_step),
-            cfg_step, steps,
-        )
-        cfg_fused = cfg_step._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_fused = lkatyusha_run(
-                F, g,
-                lkatyusha_init(F, g, x0v, Lm, sigj, th1, th2, pj, key,
-                               cfg_fused),
-                cfg_fused, steps,
-            )
-        assert int(st_fused.it) == int(st_step.it)
-        for fld in ("y", "z", "w_anchor"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(st_fused, fld)),
-                np.asarray(getattr(st_step, fld)),
-                rtol=1e-4, atol=1e-6, err_msg=f"{fld} steps={steps} p={p}",
-            )
-        np.testing.assert_allclose(np.asarray(st_fused.av),
-                                   np.asarray(st_step.av),
-                                   rtol=1e-3, atol=1e-4)

@@ -1,4 +1,4 @@
-"""Unit tests for the smooth-term oracles: every fused batched path must
+"""Unit tests for the smooth-term oracles: every batched path must
 agree with per-index autodiff ground truth."""
 
 import jax

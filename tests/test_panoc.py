@@ -213,89 +213,8 @@ def test_tp_panoc_matches_single_chip(lasso):
                             L=prob.L, N=N)
 
 
-def test_panoc_fused_fbe_matches_xla():
-    """The one-pass fused FBE read (ops.coeff_value_apply_all) must
-    reproduce the XLA value_sum_and_grad_sum_all for every in-kernel
-    oracle mode (LSQ/logistic/Huber) and int8 storage, and the fused
-    PANOC trajectory must match the XLA one."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.oracles import HuberRows
-    from ciao_tpu.ops.fused_block import (
-        _pick_tile, coeff_value_apply_all, oracle_scalar_consts,
-        rows_scale_row,
-    )
-    from ciao_tpu.prox import Zero
-    from ciao_tpu.solvers.panoc import PANOCCfg, panoc_init, panoc_run
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix = 512, 128
-    rng = np.random.default_rng(5)
-    A = jnp.asarray(rng.normal(size=(Np, npix)), jnp.float32)
-    bv = jnp.asarray(rng.normal(size=Np), jnp.float32)
-    yv = jnp.asarray(np.sign(rng.normal(size=Np)), jnp.float32)
-    u = jnp.asarray(rng.normal(size=npix), jnp.float32)
-    from ciao_tpu.oracles import LogisticRows as LR
-
-    oracles = [
-        LeastSquaresRows(A=A, b=bv, scale=jnp.asarray(np.float32(Np))),
-        LR(X=A, y=yv),
-        HuberRows(A=A, b=bv, delta=jnp.asarray(np.float32(0.7)),
-                  scale=jnp.asarray(np.float32(2.0))),
-        LeastSquaresRows(
-            A=A, b=bv, scale=jnp.asarray(np.float32(Np))
-        ).with_storage(jnp.int8),
-    ]
-    for F in oracles:
-        rows, offs = F.coeff_rows_data()
-        scale, mode, _, aux = oracle_scalar_consts(F, Zero())
-        tile = _pick_tile(Np, Np, npix, esize=rows.dtype.itemsize)
-        with pltpu.force_tpu_interpret_mode():
-            val, c1, gsum = coeff_value_apply_all(
-                rows, offs[None, :], u[None, :],
-                jnp.stack([scale, mode, aux])[None, :], tile,
-                rs1=rows_scale_row(F),
-            )
-        val_x, gsum_x = F.value_sum_and_grad_sum_all(u)
-        # int8 rows: the kernel multiplies in bf16 (framework-wide int8
-        # contract), the XLA reference dequants to f32 — bf16-level gap
-        quant = rows.dtype == jnp.int8
-        np.testing.assert_allclose(float(val[0, 0]), float(val_x),
-                                   rtol=2e-3 if quant else 2e-5)
-        np.testing.assert_allclose(
-            np.asarray(gsum[0]), np.asarray(gsum_x),
-            rtol=8e-3 if quant else 2e-4,
-            atol=np.max(np.abs(gsum_x)) * (4e-3 if quant else 1e-5),
-        )
-
-    # full fused-vs-XLA PANOC trajectory
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(np.float32(Np)),
-    )
-    g = NormL1(lam=jnp.asarray(np.float32(prob.lam)))
-    gamma = jnp.asarray(0.95 / np.mean(prob.L), jnp.float32)
-    sigma = jnp.asarray(0.5 * 0.05 / (2 * 0.95 / np.mean(prob.L)),
-                        jnp.float32)
-    z0 = jnp.zeros(npix, jnp.float32)
-    for zfpr in (False, True):
-        cfg = PANOCCfg(N=Np, zerofpr=zfpr)
-        st_x = panoc_run(F, g, panoc_init(F, g, z0, gamma, sigma, cfg),
-                         cfg, 15)
-        cfg_f = cfg._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_f = panoc_run(F, g,
-                             panoc_init(F, g, z0, gamma, sigma, cfg_f),
-                             cfg_f, 15)
-        np.testing.assert_allclose(np.asarray(st_f.z), np.asarray(st_x.z),
-                                   rtol=1e-4, atol=1e-6)
-
-
 def test_value_sum_and_grad_sum_all_consistent(lasso):
-    """The fused value+grad full pass (PANOC's FBE primitive) must agree
+    """The one-pass value+grad reduction (PANOC's FBE primitive) must agree
     with the separate reductions on every row-structured oracle."""
     import jax
 
@@ -333,14 +252,14 @@ from ciao_tpu.oracles.base import register_oracle
 @dataclasses.dataclass(frozen=True)
 class _FloorNoiseOracle:
     """Oracle wrapper that adds a deterministic bf16-floor-scale jitter
-    to the objective VALUE only — the exact mechanism of the PERF.md
-    narrow-storage thrash (on TPU the fused kernel's bf16 multiply
-    paths make the FBE value noisy at ~2^-8 relative, so near the floor
-    the σ-decrease test cannot resolve it and the line search collapses
-    τ every step). The CPU XLA path computes the quantized operator
-    EXACTLY (deterministic value), so a with_storage('bf16') run
-    converges cleanly here — the injection reproduces the chip-side
-    behavior for a platform-independent test of the guard."""
+    to the objective VALUE only — the mechanism of the narrow-storage
+    thrash (bf16 multiply paths make the FBE value noisy at ~2^-8
+    relative, so near the floor the σ-decrease test cannot resolve it
+    and the line search collapses τ every step). The CPU XLA path
+    computes the quantized operator EXACTLY (deterministic value), so a
+    with_storage('bf16') run converges cleanly here — the injection
+    reproduces that behavior for a platform-independent test of the
+    guard."""
 
     F: object
     amp: jnp.ndarray

@@ -559,47 +559,6 @@ def test_dp_saga_local_steps(mesh, lasso):
         )
 
 
-def test_dp_saga_local_round_fused_matches_stepwise(mesh):
-    """On TPU the K local steps run as ONE saga_coeff_multistep launch;
-    the fused round must reproduce the stepwise local round exactly
-    (same stateless (key, it, device) start stream, same algebra).
-    Kernel-sized shards: n_loc=1024 rows, b_loc=128, n=128. On CPU the
-    fused round auto-selects the generic Pallas interpreter (TPU
-    interpret mode deadlocks under shard_map)."""
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-
-    Np, npix = 8192, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=5, dtype=np.float32,
-                      well_conditioned=True)
-    F32 = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32), b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    F32 = shard_finite_sum(F32, mesh)
-    g32 = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    gamma = jnp.asarray(1.0 / (3.0 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.RANDOM, alpha=0.999,
-                    block=True, coeff=True, local_steps=4, fused=fused)
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "saga", mesh, F32, g32, cfg
-        )
-        st = init_c(F32, g32, z0, gamma, key)
-        st = run_c(F32, g32, st, 3)
-        outs.append(st)
-    np.testing.assert_allclose(
-        np.asarray(outs[1].z), np.asarray(outs[0].z), rtol=2e-5, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[1].s), np.asarray(outs[0].s), rtol=2e-4, atol=1e-2
-    )
-
-
 def test_dp_finito_local_steps(mesh, lasso):
     """Local-update DP Finito (``local_steps=K``, beyond the reference):
     K purely-local coefficient steps per round, one EXACT av resync at
@@ -639,49 +598,6 @@ def test_dp_finito_local_steps(mesh, lasso):
     with pytest.raises(ValueError, match="local_steps"):
         DPFinito(mesh=mesh, maxit=10, batch=16, sweeping=1,
                  local_steps=4)(x0(prob), F=F, g=g, L=prob.L)
-
-
-def test_dp_finito_local_round_fused_matches_stepwise(mesh):
-    """On TPU the K local Finito steps run as ONE finito_coeff_multistep
-    launch; the fused round must reproduce the stepwise local round
-    (same start stream, same algebra). On CPU the fused round
-    auto-selects the generic Pallas interpreter."""
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-    from ciao_tpu.solvers.base import resolve_gamma_array
-
-    Np, npix = 8192, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=5, dtype=np.float32,
-                      well_conditioned=True)
-    F32 = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32), b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    F32 = shard_finite_sum(F32, mesh)
-    g32 = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    gamma = resolve_gamma_array(None, prob.L, Np, 0.999, np.dtype(np.float32))
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.SHUFFLED,
-                    alpha=0.999, coeff=True, local_steps=4, fused=fused)
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "finito_coeff", mesh, F32, g32, cfg
-        )
-        st = init_c(F32, g32, z0, gamma, key)
-        st = run_c(F32, g32, st, 3)
-        outs.append(st)
-    np.testing.assert_allclose(
-        np.asarray(outs[1].z), np.asarray(outs[0].z), rtol=2e-5, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[1].c), np.asarray(outs[0].c), rtol=2e-4, atol=1e-2
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[1].zb), np.asarray(outs[0].zb), rtol=2e-5, atol=1e-6
-    )
 
 
 def test_dp_finito_local_f32_periodic_rebase(mesh):
@@ -725,53 +641,12 @@ def test_dp_lfinito_local_sweep(mesh, lasso):
         )
 
 
-def test_dp_lfinito_local_sweep_fused_matches_stepwise(mesh):
-    """On TPU the local sweep runs as the single-chip fused epoch
-    kernel (coeff_apply_all anchor + lfinito_sweep_multistep) behind
-    the two collectives; the fused epoch must reproduce the stepwise
-    local epoch to f32 rounding (same per-device visit order, same
-    algebra). On CPU the kernels run in the generic Pallas
-    interpreter."""
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-
-    Np, npix = 8192, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=5, dtype=np.float32,
-                      well_conditioned=True)
-    F32 = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32), b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    F32 = shard_finite_sum(F32, mesh)
-    g32 = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    ghat = jnp.full((Np,), float(0.999 * Np / np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.SHUFFLED,
-                    alpha=0.999, local=True, fused=fused, variant="lfinito")
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "lfinito", mesh, F32, g32, cfg
-        )
-        st = init_c(F32, g32, z0, ghat, key)
-        st = run_c(F32, g32, st, 2)
-        outs.append(st)
-    np.testing.assert_allclose(
-        np.asarray(outs[1].av), np.asarray(outs[0].av), rtol=2e-5, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[1].z), np.asarray(outs[0].z), rtol=2e-5, atol=1e-6
-    )
-
-
 def test_dp_svrg_local_inner(mesh, lasso):
     """Local-inner DP SVRG (``local_inner=True``, beyond the
     reference): the whole m-step inner loop runs on-shard; only the
     outer boundary pays collectives (iterate-average psum + anchor
     psum). Must reach the reference tolerance, including SVRG++'s
-    growing inner loop (which stays on the unfused dynamic-m path)."""
+    growing inner loop."""
     prob, F, g = lasso
     gamma = 1.0 / (7 * float(np.max(prob.L)))
     x, _ = DPSVRG(mesh=mesh, maxit=500, batch=8, m=N, gamma=gamma,
@@ -808,96 +683,9 @@ def test_dp_svrg_local_inner_matches_lockstep_at_one_device():
     np.testing.assert_array_equal(xs[0], xs[1])
 
 
-def test_dp_svrg_local_inner_fused_matches_stepwise(mesh):
-    """On TPU the local inner loop runs as K-steps-per-launch fused
-    kernels (svrg_coeff_multistep) with a one-pass fused anchor
-    refresh; the fused outer step must reproduce the stepwise local
-    outer step to f32 rounding — including a non-multiple-of-K inner
-    length (m=96 -> one K=64 launch + a 32-step unfused remainder on
-    the same start stream)."""
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-
-    Np, npix = 8192, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=5, dtype=np.float32,
-                      well_conditioned=True)
-    F32 = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32), b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    F32 = shard_finite_sum(F32, mesh)
-    g32 = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    gamma = jnp.asarray(1.0 / (10.0 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.RANDOM,
-                    alpha=0.999, block=True, coeff=fused, local=True,
-                    fused=fused, m_inner=96 if fused else 0)
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "svrg", mesh, F32, g32, cfg, extra_init_scalars=1
-        )
-        st = init_c(F32, g32, z0, gamma, jnp.asarray(96, jnp.int32), key)
-        st = run_c(F32, g32, st, 2)
-        outs.append(st)
-    np.testing.assert_allclose(
-        np.asarray(outs[1].z_full), np.asarray(outs[0].z_full),
-        rtol=2e-5, atol=1e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[1].w), np.asarray(outs[0].w), rtol=2e-5, atol=1e-6
-    )
-
-
-def test_dp_svrg_plus_local_inner_fused_matches_stepwise(mesh):
-    """SVRG++'s DOUBLING inner loop on the fused local path (round 4):
-    a dynamic number of K=64-step launches + a dynamic stepwise
-    remainder must reproduce the unfused local path across outer steps
-    whose m crosses the launch boundary (m = 48 → 96 → 192: zero, one
-    and three full launches with 48/32/0-step remainders)."""
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-
-    Np, npix = 8192, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=5, dtype=np.float32,
-                      well_conditioned=True)
-    F32 = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32), b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    F32 = shard_finite_sum(F32, mesh)
-    g32 = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    gamma = jnp.asarray(1.0 / (10.0 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.RANDOM,
-                    alpha=0.999, plus=True, block=True, coeff=fused,
-                    local=True, fused=fused, m_inner=0)
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "svrg", mesh, F32, g32, cfg, extra_init_scalars=1
-        )
-        st = init_c(F32, g32, z0, gamma, jnp.asarray(48, jnp.int32), key)
-        st = run_c(F32, g32, st, 3)
-        outs.append(st)
-    assert int(outs[1].m) == int(outs[0].m) == 48 * 8  # doubled 3x
-    np.testing.assert_allclose(
-        np.asarray(outs[1].z_full), np.asarray(outs[0].z_full),
-        rtol=2e-5, atol=1e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[1].w), np.asarray(outs[0].w), rtol=2e-5, atol=1e-6
-    )
-
-
 def test_dp_svrg_plus_local_inner_matches_lockstep_at_one_device():
-    """At D=1 the SVRG++ local-inner path (fused or not — gates closed
-    on CPU keep it honest at the algorithm level) must equal the
-    lockstep path bit-for-bit, doubling m in sync."""
+    """At D=1 the SVRG++ local-inner path must equal the lockstep path
+    bit-for-bit, doubling m in sync."""
     prob = make_lasso(N=64, n=8, p=3, seed=7)
     F = LeastSquaresRows(
         A=jnp.asarray(prob.A), b=jnp.asarray(prob.b),
@@ -1029,46 +817,6 @@ def test_dp_complex_dtype(mesh):
     )
     assert x.dtype == prob.A.dtype
     assert prob.cost(np.asarray(x)) - prob.f_star < 1e-4
-
-
-def test_dp_lfinito_local_sweep_int8_matches_stepwise(mesh):
-    """The fused local sweep under int8 row storage (per-row dequant
-    scales fed to the kernel, anchor+sweep in two passes) must match
-    the stepwise local sweep computing with the SAME quantized
-    operator."""
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-
-    Np, npix = 8192, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=5, dtype=np.float32,
-                      well_conditioned=True)
-    Fq = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32), b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    ).with_storage("int8")
-    Fq = shard_finite_sum(Fq, mesh)
-    assert Fq.A.dtype == jnp.int8
-    g32 = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    ghat = jnp.full((Np,), float(0.999 * Np / np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.SHUFFLED,
-                    alpha=0.999, local=True, fused=fused, variant="lfinito")
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "lfinito", mesh, Fq, g32, cfg
-        )
-        st = init_c(Fq, g32, z0, ghat, key)
-        st = run_c(Fq, g32, st, 2)
-        outs.append(st)
-    # both paths use the same quantized operator; the residual gap is
-    # f32 accumulation ORDER (VMEM carry vs XLA reduction) compounded
-    # over 2 epochs x 64 sequential block updates
-    np.testing.assert_allclose(
-        np.asarray(outs[1].av), np.asarray(outs[0].av), rtol=1e-3, atol=3e-5
-    )
 
 
 def test_dp_proshi_local_rejects_nondividing_batch(mesh, sharing):
@@ -1581,126 +1329,6 @@ def _kernel_sized_dp_problem(mesh):
     return prob, F, g, Np, npix
 
 
-def test_dp_katyusha_local_inner_fused_matches_unfused(mesh):
-    """DPKatyusha(local_inner=True) on TPU runs each device's inner
-    loop as fused Katyusha kernels (CPU CI: generic Pallas interpreter)
-    — the fused outer iterate must reproduce the unfused local-inner
-    path: same local streams, same boundary collectives."""
-    from ciao_tpu.parallel import DPKatyusha
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-
-    prob, F, g, Np, npix = _kernel_sized_dp_problem(mesh)
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-    Lm = jnp.asarray(np.max(prob.L), jnp.float32)
-    half = jnp.asarray(0.5, jnp.float32)
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.RANDOM,
-                    alpha=0.999, block=True, local=True, m_inner=6,
-                    fused=fused, coeff=fused, variant="ns")
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "katyusha", mesh, F, g, cfg, extra_init_scalars=2
-        )
-        st = init_c(F, g, z0, Lm, half, half, key)
-        st = run_c(F, g, st, 3)
-        outs.append(st)
-    for fld in ("x_tilde", "y", "z", "av"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(outs[1], fld)),
-            np.asarray(getattr(outs[0], fld)),
-            rtol=2e-4, atol=1e-6, err_msg=fld,
-        )
-
-    # facade end-to-end: the gate fires and the solve converges
-    xk, _ = DPKatyusha(mesh=mesh, maxit=300, batch=1024, m=48,
-                       block_sampling=True, local_inner=True)(
-        z0, F=F, g=g, L=prob.L
-    )
-    assert prob.cost(np.asarray(xk, np.float64)) - prob.f_star < 1e-4
-
-
-def test_dp_sarah_local_inner_fused_matches_unfused(mesh):
-    """Same fused-vs-unfused pin for DPSARAH(local_inner=True): each
-    device's recursive chain runs as fused launches; the one-pass
-    bootstrap and the boundary average are unchanged."""
-    from ciao_tpu.parallel import DPSARAH
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-
-    prob, F, g, Np, npix = _kernel_sized_dp_problem(mesh)
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-    gam = jnp.asarray(1.0 / (2.0 * np.max(prob.L)), jnp.float32)
-    one = jnp.asarray(1.0, jnp.float32)
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.RANDOM,
-                    alpha=0.999, block=True, local=True, m_inner=6,
-                    fused=fused, coeff=fused)
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "sarah", mesh, F, g, cfg, extra_init_scalars=1
-        )
-        st = init_c(F, g, z0, gam, one, key)
-        st = run_c(F, g, st, 3)
-        outs.append(st)
-    np.testing.assert_allclose(np.asarray(outs[1].x_tilde),
-                               np.asarray(outs[0].x_tilde),
-                               rtol=2e-4, atol=1e-6)
-
-    xs, _ = DPSARAH(mesh=mesh, maxit=300, batch=1024, m=48,
-                    block_sampling=True, local_inner=True)(
-        z0, F=F, g=g, L=prob.L)
-    assert prob.cost(np.asarray(xs, np.float64)) - prob.f_star < 1e-4
-
-
-def test_dp_proshi_local_round_fused_matches_stepwise(mesh):
-    """DPProshi(local_steps=K, cyclic) on TPU runs each device's round
-    as streamed-table proshi_multistep launches — the fused round must
-    reproduce the stepwise local round exactly (same stateless
-    (key, it, device) start stream, same stale-coupling algebra), and
-    the facade path converges on a row-oracle sharing-style problem."""
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.prox import IndBox as _IndBox
-    from ciao_tpu.sampling import Sweep
-
-    Np, npix = 8192, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=5, dtype=np.float32)
-    F = shard_finite_sum(
-        LeastSquaresRows(
-            A=jnp.asarray(prob.A, jnp.float32),
-            b=jnp.asarray(prob.b, jnp.float32),
-            scale=jnp.asarray(float(Np), jnp.float32),
-        ),
-        mesh,
-    )
-    g = _IndBox(lo=-jnp.inf, hi=jnp.asarray(0.5, jnp.float32))
-    gamma = jnp.asarray(
-        0.999 * Np / np.asarray(prob.L, np.float32), jnp.float32
-    )
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.CYCLIC,
-                    alpha=0.999, local_steps=6, fused=fused,
-                    rebase_every=50)
-        init_c, step_c, run_c, _ = build_dp_functions(
-            "proshi", mesh, F, g, cfg
-        )
-        st = init_c(F, g, z0, gamma, key)
-        st = run_c(F, g, st, 3)
-        outs.append(st)
-    np.testing.assert_allclose(np.asarray(outs[1].z), np.asarray(outs[0].z),
-                               rtol=2e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(outs[1].s), np.asarray(outs[0].s),
-                               rtol=2e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(outs[1].av),
-                               np.asarray(outs[0].av),
-                               rtol=2e-4, atol=1e-3)
-
-
 def test_dp_adaptive_iterator_terminates_on_abort(mesh):
     """Regression (round-2 review): SolverIterable only pays the
     per-step status readback when can_abort=True — the DP facade must
@@ -1774,48 +1402,6 @@ def test_elastic_restore_onto_smaller_mesh(mesh, lasso, tmp_path):
             jax.block_until_ready(state)
     gap = prob.cost(np.asarray(state.z)) - prob.f_star
     assert gap < 1e-4
-
-
-def test_dp_saga_local_round_fused_huber(mesh):
-    """HuberRows now passes the fused gates (MODE_HUBER, round 2), so
-    DPSAGA(local_steps=K) runs its local rounds through the fused
-    kernel where it previously fell back to XLA — the fused round must
-    reproduce the stepwise local round with the clip ACTIVE."""
-    from ciao_tpu.oracles import HuberRows
-    from ciao_tpu.parallel.dp import DPCfg, build_dp_functions
-    from ciao_tpu.sampling import Sweep
-
-    Np, npix = 8192, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=5, dtype=np.float32)
-    F = shard_finite_sum(
-        HuberRows(
-            A=jnp.asarray(prob.A, jnp.float32),
-            b=jnp.asarray(prob.b, jnp.float32),
-            delta=jnp.asarray(0.02, jnp.float32),   # bites
-            scale=jnp.asarray(float(Np), jnp.float32),
-        ),
-        mesh,
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    gamma = jnp.asarray(1.0 / (3.0 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(3)
-    z0 = jnp.zeros(npix, jnp.float32)
-    outs = []
-    for fused in (False, True):
-        cfg = DPCfg(N=Np, D=8, b_loc=128, sweeping=Sweep.RANDOM,
-                    alpha=0.999, block=True, coeff=True, local_steps=4,
-                    fused=fused)
-        init_c, _, run_c, _ = build_dp_functions("saga", mesh, F, g, cfg)
-        st = init_c(F, g, z0, gamma, key)
-        st = run_c(F, g, st, 3)
-        outs.append(st)
-    np.testing.assert_allclose(np.asarray(outs[1].z), np.asarray(outs[0].z),
-                               rtol=2e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(outs[1].s), np.asarray(outs[0].s),
-                               rtol=2e-4, atol=1e-4)
-    # the clip is genuinely active on this δ
-    c = np.asarray(outs[0].s)
-    assert np.any(np.isclose(np.abs(c), float(Np) * 0.02, rtol=1e-5))
 
 
 def test_elastic_restore_onto_larger_mesh(mesh, lasso, tmp_path):

@@ -32,7 +32,7 @@ def test_point_saga_converges(lsq):
     x, it = ciao_tpu.PointSAGA(maxit=3000)(jnp.zeros(n), F=F, L=L, N=N)
     assert np.linalg.norm(np.asarray(x) - x_true) < 1e-8
     assert it == 3000
-    # minibatch + contiguous-block sampling (TPU fast path)
+    # minibatch + contiguous-block sampling (slices, no gather)
     x, _ = ciao_tpu.PointSAGA(maxit=1500, batch=8, block_sampling=True)(
         jnp.zeros(n), F=F, L=L, N=N
     )
@@ -184,169 +184,12 @@ def test_tp_point_saga_converges_and_shards(lsq):
         )
 
 
-def test_point_saga_fused_multistep_matches_stepwise():
-    """The K-steps-per-launch fused Point-SAGA kernel (VMEM coefficient
-    slab, in-kernel closed θ-solve and table-mean delta, precomputed
-    row-square-norm slab) must reproduce the stepwise block path: same
-    sampling stream, same math. Also exercises the stepwise remainder
-    (steps not a multiple of the launch size)."""
-    import jax
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.oracles import LeastSquaresRows
-    from ciao_tpu.prox import Zero
-    from ciao_tpu.solvers.point_saga import (
-        PointSAGACfg, point_saga_init, point_saga_run,
-    )
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix, Bp = 1024, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = Zero()
-    gamma = jnp.asarray(1.0 / (3.0 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0v = jnp.zeros(npix, jnp.float32)
-    for steps in (24, 137):  # single launch K=24; K=128 + remainder 9
-        cfg_step = PointSAGACfg(N=Np, batch=Bp, block=True)
-        st_step = point_saga_run(
-            F, g, point_saga_init(F, g, x0v, gamma, key, cfg_step),
-            cfg_step, steps,
-        )
-        cfg_fused = cfg_step._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_fused = point_saga_run(
-                F, g, point_saga_init(F, g, x0v, gamma, key, cfg_fused),
-                cfg_fused, steps,
-            )
-        assert int(st_fused.it) == int(st_step.it)
-        np.testing.assert_allclose(np.asarray(st_fused.x),
-                                   np.asarray(st_step.x),
-                                   rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(st_fused.c),
-                                   np.asarray(st_step.c),
-                                   rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(st_fused.av),
-                                   np.asarray(st_step.av),
-                                   rtol=1e-3, atol=1e-5)
-
-
-def test_point_saga_fused_logistic_newton_matches_stepwise():
-    """MODE_LOGISTIC through the fused Point-SAGA kernel: the per-row
-    prox θ is the in-kernel 20-step Newton (same iteration as
-    oracles.logistic._logistic_pointprox_theta, warm-started at the
-    table coefficient) and must reproduce the stepwise path."""
-    import jax
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.oracles import LogisticRows
-    from ciao_tpu.prox import Zero
-    from ciao_tpu.solvers.point_saga import (
-        PointSAGACfg, point_saga_init, point_saga_run,
-    )
-
-    rng = np.random.default_rng(0)
-    Np, npix, Bp = 1024, 128, 128
-    X = rng.standard_normal((Np, npix)).astype(np.float32)
-    y = np.sign(rng.standard_normal(Np)).astype(np.float32)
-    F = LogisticRows(X=jnp.asarray(X), y=jnp.asarray(y))
-    g = Zero()
-    gamma = jnp.asarray(0.5, jnp.float32)   # large prox-point stepsize
-    key = jax.random.PRNGKey(5)
-    x0v = jnp.zeros(npix, jnp.float32)
-    for steps in (24, 137):
-        cfg_step = PointSAGACfg(N=Np, batch=Bp, block=True)
-        st_s = point_saga_run(
-            F, g, point_saga_init(F, g, x0v, gamma, key, cfg_step),
-            cfg_step, steps,
-        )
-        cfg_f = cfg_step._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_f = point_saga_run(
-                F, g, point_saga_init(F, g, x0v, gamma, key, cfg_f),
-                cfg_f, steps,
-            )
-        np.testing.assert_allclose(np.asarray(st_f.x), np.asarray(st_s.x),
-                                   rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(st_f.c), np.asarray(st_s.c),
-                                   rtol=1e-4, atol=1e-5)
-
-
-def test_point_saga_streamed_multistep_matches_stepwise():
-    """The STREAMED-table fused Point-SAGA (any N — beyond the VMEM
-    slab cap) must reproduce the stepwise path exactly: same stateless
-    draw stream, launches clamped at same-launch block revisits
-    (round 3; the saga fused_stream machinery with the θ-solve
-    in-kernel). Covers LSQ f32/int8 and the logistic Newton mode."""
-    import jax
-
-    from ciao_tpu.oracles import LogisticRows
-    from ciao_tpu.prox import Zero
-    from ciao_tpu.solvers.point_saga import (
-        PointSAGACfg, point_saga_init, point_saga_run,
-    )
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix, Bp = 8192, 128, 128   # d = 64: frequent birthday clamps
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F32 = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    rng = np.random.default_rng(0)
-    F_log = LogisticRows(
-        X=jnp.asarray(prob.A, jnp.float32),
-        y=jnp.asarray(np.sign(rng.standard_normal(Np)), jnp.float32),
-    )
-    gamma = jnp.asarray(1.0 / (3.0 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0 = jnp.zeros(npix, jnp.float32)
-    for F, glam in ((F32, gamma), (F32.with_storage("int8"), gamma),
-                    (F_log, jnp.asarray(0.05, jnp.float32))):
-        for steps in (77, 96):
-            cfg_sw = PointSAGACfg(N=Np, batch=Bp, block=True)
-            st_sw = point_saga_run(
-                F, Zero(), point_saga_init(F, Zero(), x0, glam, key,
-                                           cfg_sw), cfg_sw, steps)
-            cfg_f = cfg_sw._replace(fused_stream=True)
-            st_f = point_saga_run(
-                F, Zero(), point_saga_init(F, Zero(), x0, glam, key,
-                                           cfg_f), cfg_f, steps)
-            rows_dt = (F.A if hasattr(F, "A") else F.X).dtype
-            tag = f"{type(F).__name__}/{rows_dt} steps={steps}"
-            assert int(st_f.it) == int(st_sw.it) == steps + 1
-            wide = 1e-4 if rows_dt == jnp.float32 else 1e-2
-            np.testing.assert_allclose(np.asarray(st_f.x),
-                                       np.asarray(st_sw.x),
-                                       rtol=wide, atol=1e-6, err_msg=tag)
-            c_atol = max(1e-3, 1e-4 * float(np.abs(st_sw.c).max()))
-            np.testing.assert_allclose(np.asarray(st_f.c),
-                                       np.asarray(st_sw.c),
-                                       rtol=max(wide, 1e-3), atol=c_atol,
-                                       err_msg=tag)
-
-
-def test_point_saga_huber_pointprox_and_fused():
+def test_point_saga_huber_pointprox():
     """Huber-row Point-SAGA (round 3): the closed-form per-row prox
     θ = clip(scale·r₀/(1+scale·γ‖a‖²), ±scale·δ) must minimize the
-    rank-1 prox objective (brute force), and MODE_HUBER through BOTH
-    fused kernels (resident slab + streamed) must equal the stepwise
-    path — robust-regression Point-SAGA at the LSQ fused rates."""
-    import jax
-
+    rank-1 prox objective (brute force), and the tensor-parallel facade
+    must run on the margin-split θ."""
     from ciao_tpu.oracles import HuberRows
-    from ciao_tpu.prox import Zero
-    from ciao_tpu.solvers.point_saga import (
-        PointSAGACfg, point_saga_init, point_saga_run,
-    )
-    from jax.experimental.pallas import tpu as pltpu
 
     rng = np.random.default_rng(0)
     Np, npix, Bp = 1024, 128, 128
@@ -379,30 +222,8 @@ def test_point_saga_huber_pointprox_and_fused():
         assert abs(float(theta[k]) - t_star) < 2e-3, (k, float(theta[k]),
                                                       t_star)
 
-    # fused (slab + streamed) == stepwise
     L = scale * (X * X).sum(axis=1)
-    gam = jnp.asarray(1.0 / (3.0 * L.max()), jnp.float32)
-    key = jax.random.PRNGKey(5)
     x0 = jnp.zeros(npix, jnp.float32)
-    for Fv in (F, F.with_storage("int8")):
-        cfg_sw = PointSAGACfg(N=Np, batch=Bp, block=True)
-        st_sw = point_saga_run(
-            Fv, Zero(), point_saga_init(Fv, Zero(), x0, gam, key, cfg_sw),
-            cfg_sw, 64)
-        cfg_f = cfg_sw._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_f = point_saga_run(
-                Fv, Zero(), point_saga_init(Fv, Zero(), x0, gam, key,
-                                            cfg_f), cfg_f, 64)
-        wide = 1e-4 if Fv.A.dtype == jnp.float32 else 1e-2
-        np.testing.assert_allclose(np.asarray(st_f.x), np.asarray(st_sw.x),
-                                   rtol=wide, atol=1e-6)
-        cfg_s = cfg_sw._replace(fused_stream=True)
-        st_s = point_saga_run(
-            Fv, Zero(), point_saga_init(Fv, Zero(), x0, gam, key, cfg_s),
-            cfg_s, 64)
-        np.testing.assert_allclose(np.asarray(st_s.x), np.asarray(st_sw.x),
-                                   rtol=wide, atol=1e-6)
 
     # TPPointSAGA consumes the margin-split θ (pointprox_theta_block)
     from ciao_tpu.parallel import TPPointSAGA, make_mesh_2d, shard_finite_sum_2d
@@ -411,76 +232,6 @@ def test_point_saga_huber_pointprox_and_fused():
     x_tp, _ = TPPointSAGA(mesh=mesh2, maxit=50, batch=2)(
         x0, F=shard_finite_sum_2d(F, mesh2), L=L)
     assert np.all(np.isfinite(np.asarray(x_tp)))
-
-
-from ciao_tpu.utils.problems import make_lasso
-
-
-def _ips_schedule(L, N, B, rdt=jnp.float32):
-    """The facade's importance-schedule construction (f64 on host,
-    clipped + π-scale CDF) — kept in sync with PointSAGA._setup."""
-    from ciao_tpu.sampling import clip_block_distribution
-
-    d = N // B
-    Lb = np.asarray(L, np.float64)
-    Lblk = np.max(Lb.reshape(d, B), axis=1)
-    q = Lblk / Lblk.sum()
-    iwin = min(64, d)
-    q, _ = clip_block_distribution(q, iwin)
-    qcum = np.cumsum(iwin * q)
-    qcum *= iwin / qcum[-1]
-    qcum[-1] = iwin
-    L_eff = float(np.max(Lblk / (d * q)))
-    return (jnp.asarray(qcum, rdt), jnp.asarray(1.0 / (d * q), rdt),
-            iwin, L_eff)
-
-
-def test_point_saga_importance_fused_paths_match_stepwise():
-    """Round 5 (VERDICT r4 #6): importance draws through BOTH fused
-    Point-SAGA kernels (resident slab + streamed window-aligned
-    launches) reproduce the stepwise systematic-πps stream — same
-    trajectory, no clamp waste (same-window blocks are distinct by
-    construction)."""
-    import jax
-
-    from ciao_tpu.prox import Zero
-    from ciao_tpu.solvers.point_saga import (
-        PointSAGACfg, point_saga_init, point_saga_run,
-    )
-
-    Np, npix, Bp = 8192, 128, 128   # d = 64 blocks
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    qcum, qinv, iwin, L_eff = _ips_schedule(prob.L, Np, Bp)
-    gamma = jnp.asarray(1.0 / (3.0 * L_eff), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0 = jnp.zeros(npix, jnp.float32)
-    base = PointSAGACfg(N=Np, batch=Bp, block=True, importance=True,
-                        istrat=True, iwin=iwin)
-    from jax.experimental.pallas import tpu as pltpu
-
-    states = {}
-    for tag, cfg in (("stepwise", base),
-                     ("slab", base._replace(fused=True)),
-                     ("stream", base._replace(fused_stream=True))):
-        st = point_saga_init(F, Zero(), x0, gamma, key, cfg)._replace(
-            qcum=qcum, qinv=qinv)
-        with pltpu.force_tpu_interpret_mode():
-            states[tag] = point_saga_run(F, Zero(), st, cfg, 193)
-    for tag in ("slab", "stream"):
-        assert int(states[tag].it) == int(states["stepwise"].it) == 194
-        np.testing.assert_allclose(
-            np.asarray(states[tag].x), np.asarray(states["stepwise"].x),
-            rtol=1e-4, atol=1e-6, err_msg=tag)
-        np.testing.assert_allclose(
-            np.asarray(states[tag].c), np.asarray(states["stepwise"].c),
-            rtol=1e-3,
-            atol=max(1e-3, 1e-4 * float(np.abs(states["stepwise"].c).max())),
-            err_msg=tag)
 
 
 def test_point_saga_importance_facade_converges_and_guards():

@@ -1,19 +1,16 @@
 """Poisson-regression rows (count-data GLM — beyond the reference;
 ProximalOperators.jl has no Poisson likelihood). Pins: gradients/values
 vs autodiff, the margin (TP) protocol, the Newton per-row prox vs brute
-force, MODE_POISSON through the fused SAGA and Point-SAGA kernels
-(slab + streamed, f32 + int8), a sparse Poisson-GLM acceptance run, and
-the DP path."""
+force, a sparse Poisson-GLM acceptance run, and the DP path."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 import ciao_tpu
 from ciao_tpu import PoissonRows
-from ciao_tpu.prox import NormL1, SqrNormL2, Zero
+from ciao_tpu.prox import NormL1, SqrNormL2
 
 N, n = 256, 32
 
@@ -121,82 +118,6 @@ def test_pointprox_newton_vs_brute(glm_data):
     w = np.asarray(c_B) - np.asarray(theta)
     np.testing.assert_allclose(np.asarray(u), w @ A[np.asarray(idx)],
                                rtol=1e-9, atol=1e-12)
-
-
-def test_fused_saga_mode_poisson():
-    """MODE_POISSON through the fused SAGA kernel (resident slab,
-    interpret mode) and the streamed variant — both must equal the
-    stepwise path; int8 storage included."""
-    from ciao_tpu.solvers.saga import SAGACfg, saga_init, saga_run
-
-    rng = np.random.default_rng(4)
-    Np, npix, Bp = 1024, 128, 128
-    A = (rng.standard_normal((Np, npix)) * (0.5 / np.sqrt(npix))).astype(
-        np.float32)
-    xt = np.zeros(npix, np.float32)
-    xt[:4] = [1.0, -0.8, 0.6, -0.5]
-    y = rng.poisson(np.exp(A @ xt)).astype(np.float32)
-    F32 = PoissonRows(A=jnp.asarray(A), y=jnp.asarray(y),
-                      scale=jnp.asarray(2.0, jnp.float32))
-    g = NormL1(lam=jnp.asarray(0.01, jnp.float32))
-    L = np.asarray(F32.local_smoothness(3.0))
-    gamma = jnp.asarray(1.0 / (3.0 * L.max()), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0 = jnp.zeros(npix, jnp.float32)
-    for F in (F32, F32.with_storage("int8")):
-        cfg_sw = SAGACfg(N=Np, sag=False, batch=Bp, block=True, coeff=True)
-        st_sw = saga_run(F, g, saga_init(F, g, x0, gamma, key, cfg_sw),
-                         cfg_sw, 64)
-        cfg_f = cfg_sw._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_f = saga_run(F, g, saga_init(F, g, x0, gamma, key, cfg_f),
-                            cfg_f, 64)
-        wide = 1e-4 if F.A.dtype == jnp.float32 else 1e-2
-        np.testing.assert_allclose(np.asarray(st_f.z), np.asarray(st_sw.z),
-                                   rtol=wide, atol=1e-6)
-        cfg_s = cfg_sw._replace(fused_stream=True)
-        st_s = saga_run(F, g, saga_init(F, g, x0, gamma, key, cfg_s),
-                        cfg_s, 64)
-        np.testing.assert_allclose(np.asarray(st_s.z), np.asarray(st_sw.z),
-                                   rtol=wide, atol=1e-6)
-
-
-def test_fused_point_saga_mode_poisson():
-    """The in-kernel Poisson Newton θ-solve (MODE_POISSON branch of
-    _pointprox_theta) through the streamed Point-SAGA kernel equals the
-    stepwise Newton."""
-    from ciao_tpu.solvers.point_saga import (
-        PointSAGACfg, point_saga_init, point_saga_run,
-    )
-
-    rng = np.random.default_rng(6)
-    Np, npix, Bp = 8192, 128, 128   # d = 64: frequent birthday clamps
-    A = (rng.standard_normal((Np, npix)) * (0.5 / np.sqrt(npix))).astype(
-        np.float32)
-    xt = np.zeros(npix, np.float32)
-    xt[:4] = [1.0, -0.8, 0.6, -0.5]
-    y = rng.poisson(np.exp(A @ xt)).astype(np.float32)
-    F = PoissonRows(A=jnp.asarray(A), y=jnp.asarray(y),
-                    scale=jnp.asarray(1.0, jnp.float32))
-    L = np.asarray(F.local_smoothness(3.0))
-    gamma = jnp.asarray(1.0 / (3.0 * L.max()), jnp.float32)
-    key = jax.random.PRNGKey(7)
-    x0 = jnp.zeros(npix, jnp.float32)
-    for steps in (77, 96):
-        cfg_sw = PointSAGACfg(N=Np, batch=Bp, block=True)
-        st_sw = point_saga_run(
-            F, Zero(), point_saga_init(F, Zero(), x0, gamma, key, cfg_sw),
-            cfg_sw, steps)
-        cfg_f = cfg_sw._replace(fused_stream=True)
-        st_f = point_saga_run(
-            F, Zero(), point_saga_init(F, Zero(), x0, gamma, key, cfg_f),
-            cfg_f, steps)
-        assert int(st_f.it) == int(st_sw.it) == steps + 1
-        np.testing.assert_allclose(np.asarray(st_f.x), np.asarray(st_sw.x),
-                                   rtol=1e-4, atol=1e-6)
-        c_atol = max(1e-3, 1e-4 * float(np.abs(st_sw.c).max()))
-        np.testing.assert_allclose(np.asarray(st_f.c), np.asarray(st_sw.c),
-                                   rtol=1e-3, atol=c_atol)
 
 
 def test_sparse_poisson_glm_acceptance(glm_data):

@@ -302,46 +302,6 @@ def test_cv_stepsize_condition_warning():
         )
 
 
-def test_cv_fused_full_pass_matches_xla():
-    """The fused one-pass gradient read must reproduce the XLA step."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.solvers.primal_dual import PDCfg, pd_init, pd_run
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix = 512, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    h = NormL1(lam=jnp.asarray(0.05, jnp.float32))
-    K = FirstDifference()
-    Lf = float(np.mean(prob.L))
-    sigma = 0.5
-    tau = jnp.asarray(0.99 / (Lf / 2.0 + sigma * 4.0), jnp.float32)
-    sigma = jnp.asarray(sigma, jnp.float32)
-    z0 = jnp.zeros(npix, jnp.float32)
-    cfg = PDCfg(N=Np)
-    st_x = pd_run(F, g, h, K, pd_init(F, g, h, K, z0, tau, sigma, cfg),
-                  cfg, 20)
-    cfg_f = cfg._replace(fused=True)
-    with pltpu.force_tpu_interpret_mode():
-        st_f = pd_run(F, g, h, K,
-                      pd_init(F, g, h, K, z0, tau, sigma, cfg_f), cfg_f, 20)
-    np.testing.assert_allclose(np.asarray(st_f.x), np.asarray(st_x.x),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(st_f.y), np.asarray(st_x.y),
-                               rtol=1e-4, atol=1e-6)
-
-
-# ---------------------------------------------------------------------------
-# DP trajectory equality
-# ---------------------------------------------------------------------------
-
-
 def test_dp_condat_vu_matches_single_chip():
     """DPCondatVu on the 8-device mesh: deterministic method, so the
     sharded trajectory must equal single-chip to reduction-order

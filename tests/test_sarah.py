@@ -46,7 +46,7 @@ def test_sarah_converges(lasso):
 
 
 def test_sarah_block_minibatch_and_errors(lasso):
-    """Contiguous-block sampling (TPU fast path) with a matched-epoch
+    """Contiguous-block sampling (slices, no gather) with a matched-epoch
     inner length converges; misconfiguration raises."""
     prob, F, g = lasso
     x, _ = ciao_tpu.SARAH(maxit=30, batch=8, block_sampling=True, m=N)(
@@ -171,49 +171,3 @@ def test_sarah_checkpoint_resume_and_storage(tmp_path, lasso):
     rel = (prob32.cost(np.asarray(x)) - prob32.f_star) / abs(prob32.f_star)
     assert rel < 2e-2, rel
 
-
-def test_sarah_fused_multistep_matches_stepwise():
-    """The K-inner-steps-per-launch fused SARAH kernel (stacked (2,n)
-    [w_prev; w] carry, two margins from one MXU dot per tile, in-kernel
-    damped prox, one-pass anchor bootstrap) must reproduce the stepwise
-    block-sampled recursion: same sampling stream, same math. Covers a
-    single-launch m, a stepwise-remainder m, and η < 1 damping."""
-    import jax
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.oracles import LeastSquaresRows
-    from ciao_tpu.prox import NormL1
-    from ciao_tpu.solvers.sarah import SARAHCfg, sarah_init, sarah_run
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix, Bp = 1024, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    gamma = jnp.asarray(1.0 / (2.0 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0v = jnp.zeros(npix, jnp.float32)
-    for m, eta in ((24, 1.0), (70, 0.7)):
-        etaj = jnp.asarray(eta, jnp.float32)
-        cfg_step = SARAHCfg(N=Np, batch=Bp, m=m, block=True)
-        st_step = sarah_run(
-            F, g, sarah_init(F, g, x0v, gamma, etaj, key, cfg_step),
-            cfg_step, 3,
-        )
-        cfg_fused = cfg_step._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_fused = sarah_run(
-                F, g, sarah_init(F, g, x0v, gamma, etaj, key, cfg_fused),
-                cfg_fused, 3,
-            )
-        assert int(st_fused.it) == int(st_step.it)
-        np.testing.assert_allclose(np.asarray(st_fused.x_tilde),
-                                   np.asarray(st_step.x_tilde),
-                                   rtol=1e-4, atol=1e-6)
-        assert np.array_equal(np.asarray(st_fused.key),
-                              np.asarray(st_step.key))

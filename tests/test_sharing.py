@@ -111,154 +111,6 @@ def test_observer_sharing_objective(sharing):
     assert objs[-1] < objs[0] - 1e-6  # objective decreased
 
 
-def test_proshi_fused_multistep_matches_stepwise():
-    """The K-blocks-per-launch fused ProShI kernel (streamed (N, n)
-    block table through in/out aliasing, av/z carried in VMEM,
-    in-kernel pointwise rank-1 gradients and coupling prox) must
-    reproduce the stepwise cyclic path: same gen_block_ids stream, same
-    algebra. Covers IndBox / NormL1 / Zero couplings and the stepwise
-    remainder."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.oracles import LeastSquaresRows
-    from ciao_tpu.prox import NormL1, Zero
-    from ciao_tpu.solvers.proshi import ProshiCfg, proshi_init, proshi_run
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix, B = 1024, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    gamma = jnp.asarray(0.999 * Np / np.asarray(prob.L, np.float32),
-                        jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0v = jnp.zeros(npix, jnp.float32)
-    gs = (
-        IndBox(lo=-jnp.inf, hi=jnp.asarray(0.5, jnp.float32)),
-        NormL1(lam=jnp.asarray(0.01, jnp.float32)),
-        Zero(),
-    )
-    for g in gs:
-        for steps in (24, 27):  # 3 launches of K=8; +remainder 3
-            cfg_step = ProshiCfg(N=Np, batch=B, sweeping=2, alpha=0.999)
-            st_s = proshi_run(
-                F, g, proshi_init(F, g, x0v, gamma, key, cfg_step),
-                cfg_step, steps,
-            )
-            cfg_f = cfg_step._replace(fused=True)
-            with pltpu.force_tpu_interpret_mode():
-                st_f = proshi_run(
-                    F, g, proshi_init(F, g, x0v, gamma, key, cfg_f),
-                    cfg_f, steps,
-                )
-            assert int(st_f.it) == int(st_s.it)
-            tag = f"{type(g).__name__} steps={steps}"
-            np.testing.assert_allclose(np.asarray(st_f.z),
-                                       np.asarray(st_s.z),
-                                       rtol=1e-4, atol=1e-6, err_msg=tag)
-            np.testing.assert_allclose(np.asarray(st_f.s),
-                                       np.asarray(st_s.s),
-                                       rtol=1e-4, atol=1e-5, err_msg=tag)
-            np.testing.assert_allclose(np.asarray(st_f.av),
-                                       np.asarray(st_s.av),
-                                       rtol=1e-3, atol=1e-4, err_msg=tag)
-            assert int(st_f.sweep.pos) == int(st_s.sweep.pos)
-
-
-def test_gen_block_ids_clamped_matches_stepwise():
-    """The clamped window generator must reproduce the stepwise
-    next_block_id stream exactly: committed prefixes concatenate to the
-    sequential stream, every committed window is duplicate-free, and
-    the advanced state equals the stepwise state after the same number
-    of draws — for SHUFFLED (epoch-boundary clamps) and RANDOM (iid
-    birthday clamps)."""
-    import jax
-
-    from ciao_tpu.sampling import (
-        Sweep,
-        gen_block_ids_clamped,
-        init_sweep,
-        next_block_id,
-    )
-
-    n, batch = 80, 1   # d = 80 blocks
-    for sweeping in (Sweep.SHUFFLED, Sweep.RANDOM):
-        key = jax.random.PRNGKey(7)
-        st_gen = init_sweep(key, n, batch, sweeping)
-        committed = []
-        n_clamped = 0
-        while len(committed) < 300:
-            blocks, f, st_gen = gen_block_ids_clamped(
-                st_gen, 64, n, batch, sweeping
-            )
-            f = int(f)
-            win = np.asarray(blocks)[:f]
-            assert len(np.unique(win)) == f  # committed window distinct
-            if f < 64:
-                n_clamped += 1
-            committed.extend(win.tolist())
-        assert n_clamped >= 1  # the clamp actually exercised
-        st_step = init_sweep(key, n, batch, sweeping)
-        for t, expect in enumerate(committed):
-            b, st_step = next_block_id(st_step, n, batch, sweeping)
-            assert int(b) == expect, f"{sweeping} diverged at draw {t}"
-        # advanced states agree (pos, order, key)
-        assert int(st_gen.pos) == int(st_step.pos)
-        np.testing.assert_array_equal(np.asarray(st_gen.order),
-                                      np.asarray(st_step.order))
-        np.testing.assert_array_equal(np.asarray(st_gen.key),
-                                      np.asarray(st_step.key))
-
-
-@pytest.mark.parametrize("sweeping,block_sampling", [(3, False), (1, True)])
-def test_proshi_fused_clamped_matches_stepwise(sweeping, block_sampling):
-    """The CLAMPED fused driver (shuffled epoch-boundary clamps /
-    random-block birthday clamps, masked kernel tails redirected to a
-    free block) must reproduce the stepwise path exactly — the round-3
-    widening of the cyclic-only gate (VERDICT r2 #3)."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.oracles import LeastSquaresRows
-    from ciao_tpu.prox import NormL1
-    from ciao_tpu.solvers.proshi import ProshiCfg, proshi_init, proshi_run
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix, B = 1280, 128, 16  # d = 80 > K: misaligned windows + clamps
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = NormL1(lam=jnp.asarray(0.01, jnp.float32))
-    gamma = jnp.asarray(0.999 * Np / np.asarray(prob.L, np.float32),
-                        jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0v = jnp.zeros(npix, jnp.float32)
-    cfg_step = ProshiCfg(N=Np, batch=B, sweeping=sweeping, alpha=0.999,
-                         block_sampling=block_sampling)
-    steps = 150
-    st_s = proshi_run(F, g, proshi_init(F, g, x0v, gamma, key, cfg_step),
-                      cfg_step, steps)
-    cfg_f = cfg_step._replace(fused=True)
-    with pltpu.force_tpu_interpret_mode():
-        st_f = proshi_run(F, g, proshi_init(F, g, x0v, gamma, key, cfg_f),
-                          cfg_f, steps)
-    assert int(st_f.it) == int(st_s.it) == steps + 1
-    np.testing.assert_allclose(np.asarray(st_f.z), np.asarray(st_s.z),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(st_f.s), np.asarray(st_s.s),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(st_f.av), np.asarray(st_s.av),
-                               rtol=1e-3, atol=1e-4)
-    assert int(st_f.sweep.pos) == int(st_s.sweep.pos)
-
-
 def test_proshi_block_sampling_acceptance(sharing):
     """block_sampling=True under the default random sweep still passes
     the reference sharing tolerance (B=1: uniform block ≡ uniform index
@@ -269,39 +121,3 @@ def test_proshi_block_sampling_acceptance(sharing):
     )
     check(prob, x)
 
-
-def test_proshi_fused_narrow_storage_matches_stepwise():
-    """int8-stored oracle rows through the fused ProShI kernel: the
-    per-row dequant scale rides a (TILE, 1) column and the trajectory
-    must equal the stepwise path ON THE SAME QUANTIZED OPERATOR (both
-    paths compute with Ã = diag(rs)·Q exactly)."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ciao_tpu.oracles import LeastSquaresRows
-    from ciao_tpu.solvers.proshi import ProshiCfg, proshi_init, proshi_run
-    from ciao_tpu.utils.problems import make_lasso
-
-    Np, npix, B = 1024, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    ).with_storage("int8")
-    g = IndBox(lo=-jnp.inf, hi=jnp.asarray(0.5, jnp.float32))
-    gamma = jnp.asarray(0.999 * Np / np.asarray(prob.L, np.float32),
-                        jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0v = jnp.zeros(npix, jnp.float32)
-    cfg_step = ProshiCfg(N=Np, batch=B, sweeping=2, alpha=0.999)
-    st_s = proshi_run(F, g, proshi_init(F, g, x0v, gamma, key, cfg_step),
-                      cfg_step, 24)
-    cfg_f = cfg_step._replace(fused=True)
-    with pltpu.force_tpu_interpret_mode():
-        st_f = proshi_run(F, g, proshi_init(F, g, x0v, gamma, key, cfg_f),
-                          cfg_f, 24)
-    np.testing.assert_allclose(np.asarray(st_f.z), np.asarray(st_s.z),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(st_f.s), np.asarray(st_s.s),
-                               rtol=1e-4, atol=1e-5)

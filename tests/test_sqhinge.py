@@ -1,8 +1,8 @@
 """Squared-hinge rows (smooth SVM — beyond the reference; its oracle
 set has no margin loss and ProximalOperators' HingeLoss is nonsmooth).
 Pins: gradients/values vs autodiff, the margin (TP) protocol, the
-closed-form per-row prox vs brute force, MODE_SQHINGE through the
-fused SAGA kernel, int8 storage, an L2-SVM acceptance run (separable
+closed-form per-row prox vs brute force, int8 storage, an L2-SVM
+acceptance run (separable
 planted data: perfect training classification + the PANOC optimum),
 and a sparse-SVM (L1) run."""
 
@@ -10,11 +10,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 import ciao_tpu
 from ciao_tpu import SquaredHingeRows
-from ciao_tpu.prox import NormL1, SqrNormL2, Zero
+from ciao_tpu.prox import NormL1, SqrNormL2
 
 N, n = 256, 32
 
@@ -127,41 +126,6 @@ def test_pointprox_closed_form_vs_brute(svm_data):
                                                       t_star)
 
 
-def test_fused_saga_mode_sqhinge(svm_data):
-    """MODE_SQHINGE through the fused SAGA kernel (resident slab) and
-    the streamed variant — both must equal the stepwise path; int8
-    storage included."""
-    from ciao_tpu.solvers.saga import SAGACfg, saga_init, saga_run
-
-    rng = np.random.default_rng(4)
-    Np, npix, Bp = 1024, 128, 128
-    X = rng.standard_normal((Np, npix)).astype(np.float32)
-    y = np.sign(rng.standard_normal(Np)).astype(np.float32)
-    F32 = SquaredHingeRows(A=jnp.asarray(X), y=jnp.asarray(y),
-                           scale=jnp.asarray(2.0, jnp.float32))
-    g = NormL1(lam=jnp.asarray(0.01, jnp.float32))
-    L = 2.0 * (X * X).sum(axis=1)
-    gamma = jnp.asarray(1.0 / (3.0 * L.max()), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0 = jnp.zeros(npix, jnp.float32)
-    for F in (F32, F32.with_storage("int8")):
-        cfg_sw = SAGACfg(N=Np, sag=False, batch=Bp, block=True, coeff=True)
-        st_sw = saga_run(F, g, saga_init(F, g, x0, gamma, key, cfg_sw),
-                         cfg_sw, 64)
-        cfg_f = cfg_sw._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_f = saga_run(F, g, saga_init(F, g, x0, gamma, key, cfg_f),
-                            cfg_f, 64)
-        wide = 1e-4 if F.A.dtype == jnp.float32 else 1e-2
-        np.testing.assert_allclose(np.asarray(st_f.z), np.asarray(st_sw.z),
-                                   rtol=wide, atol=1e-6)
-        cfg_s = cfg_sw._replace(fused_stream=True)
-        st_s = saga_run(F, g, saga_init(F, g, x0, gamma, key, cfg_s),
-                        cfg_s, 64)
-        np.testing.assert_allclose(np.asarray(st_s.z), np.asarray(st_sw.z),
-                                   rtol=wide, atol=1e-6)
-
-
 def test_l2_svm_acceptance(svm_data):
     """L2-regularized L2-SVM on separable planted data: SAGA and
     Katyusha reach the PANOC optimum and classify the training set
@@ -268,76 +232,3 @@ def test_dp_tp_sqhinge_match_single_chip(svm_data):
     assert np.all(np.isfinite(np.asarray(x_tps)))
     assert np.mean(np.sign(X @ np.asarray(x_tps)) == y) == 1.0
 
-
-def test_fused_point_saga_mode_sqhinge():
-    """The in-kernel squared-hinge θ-solve (MODE_SQHINGE branch of
-    _pointprox_theta, round 4 — one activity test + closed form)
-    through BOTH fused Point-SAGA kernels equals the stepwise closed
-    form, active and inactive rows mixed."""
-    from ciao_tpu.prox import Zero
-    from ciao_tpu.solvers.point_saga import (
-        PointSAGACfg, point_saga_init, point_saga_run,
-    )
-
-    rng = np.random.default_rng(6)
-    Np, npix, Bp = 8192, 128, 128   # d = 64: streamed clamps exercised
-    A = (rng.standard_normal((Np, npix)) / np.sqrt(npix)).astype(
-        np.float32)
-    y = np.sign(rng.standard_normal(Np)).astype(np.float32)
-    F = SquaredHingeRows(A=jnp.asarray(A), y=jnp.asarray(y),
-                         scale=jnp.asarray(1.0, jnp.float32))
-    L = np.sum(A * A, axis=1)
-    gamma = jnp.asarray(1.0 / (3.0 * L.max()), jnp.float32)
-    key = jax.random.PRNGKey(7)
-    x0 = jnp.zeros(npix, jnp.float32)
-    from jax.experimental.pallas import tpu as pltpu
-
-    import contextlib
-
-    for fused_kw in ({"fused": True}, {"fused_stream": True}):
-        for steps in (77, 96):
-            # the slab kernel needs explicit interpret mode on CPU
-            # (the streamed driver auto-interprets off-TPU); single-use
-            # context, so build per run
-            ctx = (pltpu.force_tpu_interpret_mode()
-                   if "fused" in fused_kw else contextlib.nullcontext())
-            cfg_sw = PointSAGACfg(N=Np, batch=Bp, block=True)
-            st_sw = point_saga_run(
-                F, Zero(),
-                point_saga_init(F, Zero(), x0, gamma, key, cfg_sw),
-                cfg_sw, steps)
-            cfg_f = cfg_sw._replace(**fused_kw)
-            with ctx:
-                st_f = point_saga_run(
-                    F, Zero(),
-                    point_saga_init(F, Zero(), x0, gamma, key, cfg_f),
-                    cfg_f, steps)
-            assert int(st_f.it) == int(st_sw.it) == steps + 1
-            np.testing.assert_allclose(np.asarray(st_f.x),
-                                       np.asarray(st_sw.x),
-                                       rtol=1e-4, atol=1e-6)
-            c_atol = max(1e-4, 1e-4 * float(np.abs(st_sw.c).max()))
-            np.testing.assert_allclose(np.asarray(st_f.c),
-                                       np.asarray(st_sw.c),
-                                       rtol=1e-3, atol=c_atol)
-
-
-def test_point_saga_facade_gates_sqhinge_fused():
-    """The facade now opens the fused gate for squared-hinge rows."""
-    from ciao_tpu import runtime
-    from ciao_tpu.solvers.point_saga import PointSAGA
-
-    rng = np.random.default_rng(0)
-    A = jnp.asarray(rng.standard_normal((8192, 128)), jnp.float32)
-    y = jnp.asarray(np.sign(rng.standard_normal(8192)), jnp.float32)
-    F = SquaredHingeRows(A=A, y=y, scale=jnp.asarray(1.0, jnp.float32))
-    orig = runtime.on_tpu
-    runtime.on_tpu = lambda: True
-    try:
-        _, _, _, cfg, _ = PointSAGA(
-            maxit=1, batch=128, block_sampling=True)._setup(
-                jnp.zeros(128, jnp.float32), F, None,
-                np.sum(np.asarray(A) ** 2, axis=1), None)
-    finally:
-        runtime.on_tpu = orig
-    assert cfg.fused or cfg.fused_stream

@@ -3,20 +3,19 @@ Zhou-Shang-Cheng AISTATS 2019, PAPERS.md). Contracts: (a) τ = 1
 degenerates to EXACTLY the minibatch-SAGA block step; (b) with the
 σ-tuned momentum it beats SAGA ≥50× at a matched step budget on the
 ill-conditioned planted lasso (the acceleration it exists for);
-(c) fused ≡ stepwise on the same sampling stream; (d) the streaming-API
-invariants and the storage-rebase hook every solver obeys."""
+(c) the streaming-API invariants and the storage-rebase hook every
+solver obeys."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 import ciao_tpu
 from ciao_tpu.oracles import LeastSquaresRows
 from ciao_tpu.prox import NormL1
 from ciao_tpu.solvers.base import take
-from ciao_tpu.solvers.ssnm import SSNM, SSNMCfg, ssnm_init, ssnm_run
+from ciao_tpu.solvers.ssnm import SSNM, SSNMCfg, ssnm_init
 from ciao_tpu.utils.problems import make_lasso
 
 
@@ -87,43 +86,6 @@ def test_ssnm_accelerates_past_saga_on_ill_conditioned():
     gap_saga = prob.cost(np.asarray(x_saga)) - prob.f_star
     gap_ssnm = prob.cost(np.asarray(x_ssnm)) - prob.f_star
     assert gap_ssnm < gap_saga / 50
-
-
-def test_ssnm_fused_multistep_matches_stepwise():
-    """The K-steps-per-launch fused SSNM kernel (coefficient slab AND
-    the (d, n) stored-point table in VMEM, momentum point formed
-    in-kernel) must reproduce the stepwise path: same sampling stream,
-    same math — including the stepwise remainder."""
-    Np, npix, Bp = 1024, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    eta = jnp.asarray(1.0 / (3.0 * np.max(prob.L)), jnp.float32)
-    tau = jnp.asarray(0.3, jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0 = jnp.zeros(npix, jnp.float32)
-    for steps in (24, 137):
-        cfg = SSNMCfg(N=Np, batch=Bp)
-        st_s = ssnm_run(F, g, ssnm_init(F, g, x0, tau, eta, key, cfg),
-                        cfg, steps)
-        cfg_f = cfg._replace(fused=True)
-        with pltpu.force_tpu_interpret_mode():
-            st_f = ssnm_run(F, g, ssnm_init(F, g, x0, tau, eta, key, cfg_f),
-                            cfg_f, steps)
-        assert int(st_f.it) == int(st_s.it)
-        for fld in ("x", "c", "gbar"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(st_f, fld)),
-                np.asarray(getattr(st_s, fld)),
-                rtol=1e-4, atol=1e-5, err_msg=f"{fld} steps={steps}",
-            )
-        np.testing.assert_allclose(np.asarray(st_f.zb),
-                                   np.asarray(st_s.zb),
-                                   rtol=1e-4, atol=1e-6)
 
 
 def test_ssnm_iterator_storage_and_errors(lasso):
@@ -224,49 +186,3 @@ def test_tp_ssnm_converges_and_shards():
             jnp.zeros(8), F=F, g=NormL2(lam=jnp.asarray(1.0)), L=prob.L
         )
 
-
-def test_ssnm_streamed_multistep_matches_stepwise():
-    """The STREAMED-table fused SSNM (any N — the saga fused_stream
-    machinery with the momentum math in-kernel and the (d, n)
-    stored-point table VMEM-resident) must reproduce the stepwise path
-    exactly, clamps included; masked steps must leave the redirected
-    block's stored point untouched (d=64: frequent birthday clamps)."""
-    import jax
-
-    from ciao_tpu.solvers.ssnm import SSNMCfg, ssnm_init, ssnm_run
-
-    Np, npix, Bp = 8192, 128, 128
-    prob = make_lasso(N=Np, n=npix, p=4, seed=3, dtype=np.float32)
-    F32 = LeastSquaresRows(
-        A=jnp.asarray(prob.A, jnp.float32),
-        b=jnp.asarray(prob.b, jnp.float32),
-        scale=jnp.asarray(float(Np), jnp.float32),
-    )
-    g = NormL1(lam=jnp.asarray(prob.lam, jnp.float32))
-    tau = jnp.asarray(0.5, jnp.float32)
-    eta = jnp.asarray(1.0 / (1.5 * np.max(prob.L)), jnp.float32)
-    key = jax.random.PRNGKey(5)
-    x0 = jnp.zeros(npix, jnp.float32)
-    for F in (F32, F32.with_storage("int8")):
-        for steps in (77, 96):
-            cfg_sw = SSNMCfg(N=Np, batch=Bp)
-            st_sw = ssnm_run(F, g, ssnm_init(F, g, x0, tau, eta, key,
-                                             cfg_sw), cfg_sw, steps)
-            cfg_f = cfg_sw._replace(fused_stream=True)
-            st_f = ssnm_run(F, g, ssnm_init(F, g, x0, tau, eta, key,
-                                            cfg_f), cfg_f, steps)
-            rows_dt = F.A.dtype
-            tag = f"{rows_dt} steps={steps}"
-            assert int(st_f.it) == int(st_sw.it) == steps + 1
-            wide = 1e-4 if rows_dt == jnp.float32 else 1e-2
-            np.testing.assert_allclose(np.asarray(st_f.x),
-                                       np.asarray(st_sw.x),
-                                       rtol=wide, atol=1e-6, err_msg=tag)
-            np.testing.assert_allclose(np.asarray(st_f.zb),
-                                       np.asarray(st_sw.zb),
-                                       rtol=wide, atol=1e-6, err_msg=tag)
-            c_atol = max(1e-3, 1e-4 * float(np.abs(st_sw.c).max()))
-            np.testing.assert_allclose(np.asarray(st_f.c),
-                                       np.asarray(st_sw.c),
-                                       rtol=max(wide, 1e-3), atol=c_atol,
-                                       err_msg=tag)

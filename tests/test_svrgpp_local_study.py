@@ -1,18 +1,14 @@
 """SVRG++ local-inner vs lockstep at D>1 — the convergence-rate study
 (round 5, VERDICT r4 #4; clears the long-standing CLAUDE.md queue item).
 
-Measured finding (PERF.md "SVRG++ local vs lockstep at D=8" has the
-full traces): on the 8-device mesh the two modes track each other
+Finding: on the 8-device CPU mesh the two modes track each other
 round-for-round until deep into the run, and the ROUND GAP to a fixed
 relative target is Δr ∈ {0, 1} — NOT the 4-round gap the tiny N=32 CI
 instance once suggested (that gap was a small-sample artifact: with
 b_loc=1 each device's shard held 4 indices). Because SVRG++ doubles m
 every round, Δr is exactly the cost exponent: local pays ≤ 2^Δr ≤ 2×
-the inner steps of lockstep to the same target, while its fused
-per-step cost is 2.2× lower (0.0300 vs 0.0657 ms measured at D=1) and
-it pays 2 collectives per OUTER round where lockstep pays one per
-INNER step. Net worst case at free collectives: 2·0.0300/0.0657 =
-0.91× — local never loses; every real t_coll > 0 widens the win.
+the inner steps of lockstep to the same target, and it pays 2
+collectives per OUTER round where lockstep pays one per INNER step.
 
 This test pins the measured envelope so a regression in the local-inner
 drift (e.g. in the warm-start w average) shows up as Δr > 1.
